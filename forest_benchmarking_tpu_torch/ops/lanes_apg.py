@@ -1,0 +1,441 @@
+"""Fused APG process-MLE solver: plain PyTorch version and CUDA kernel wrapper.
+
+Port of ``forest_benchmarking_tpu/ops/lanes_apg.py``. It solves the PGDB
+maximum-likelihood problem, min -sum n log(Re(A vec E)) over CPTP Choi
+matrices E, for a batch of independent problems that share one A-matrix:
+
+- start from the linear-inversion estimate, Dykstra-projected;
+- run a static schedule of Nesterov phases with O'Donoghue-Candes function
+  restart; each proximal step is a Dykstra alternating projection (CP then
+  TP) whose CP step is a cyclic-Jacobi eigensolve in the eigenbasis V
+  carried over from the previous projection;
+- end on a trace-preserving Dykstra half-step.
+
+:func:`apg_fused_reference` is the JAX ``apg_fused_lanes`` written
+batch-first on (B, d^2, d^2) real and imaginary planes, with the same
+operations in the same order (the 16x16 and A-matrix products go through
+``torch.matmul``, so only summation order differs). :func:`apg_fused` is the
+wrapper: it builds the warm start, then runs the plain version for CPU
+tensors and the hand-written CUDA kernel ``csrc/apg_fused.cu`` for CUDA
+tensors (dim=4, float32).
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from forest_benchmarking_tpu_torch import kernels
+
+__all__ = [
+    "raster_a_matrix", "linear_inversion_start", "apg_fused_reference",
+    "apg_fused_kernel", "apg_fused", "full_f32_matmul",
+    "PARITY_PHASES", "PARITY_TUNED_2Q", "HEADLINE_TUNED_2Q",
+]
+
+# (outer_iters, dykstra_iters, jacobi_sweeps) phases; equal to the JAX
+# package's constants (tuned there against the f64 converged optimum).
+PARITY_PHASES: Tuple[Tuple[int, int, int], ...] = (
+    (12, 1, 1), (10, 2, 1), (28, 6, 1))
+
+PARITY_TUNED_2Q = dict(
+    phases=((10, 1, 1), (10, 2, 1), (20, 6, 1), (4, 8, 1)),
+    init_iters=6, init_sweeps=3, final_iters=12, final_sweeps=1,
+    mu=1.5 / 32)
+
+HEADLINE_TUNED_2Q = dict(
+    phases=((5, 1, 1),), init_iters=2, init_sweeps=3,
+    final_iters=2, final_sweeps=1, mu=1.5 / 32)
+
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Run float32 matrix products in full float32, not TF32 (the port's
+    counterpart of the JAX package's ``Precision.HIGHEST`` pins)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _round_robin_pairs(n: int):
+    """n-1 rounds of n/2 disjoint index pairs covering every pair exactly once."""
+    players = list(range(n))
+    rounds = []
+    for _ in range(n - 1):
+        pairs = []
+        for i in range(n // 2):
+            a, b = players[i], players[n - 1 - i]
+            pairs.append((min(a, b), max(a, b)))
+        rounds.append(pairs)
+        players = [players[0]] + [players[-1]] + players[1:-1]
+    return rounds
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_index(n: int, device: torch.device):
+    """(P, Q): (n-1, n/2) long tensors of the round-robin pairs, p < q."""
+    rounds = torch.tensor(_round_robin_pairs(n), dtype=torch.long,
+                          device=device)
+    return rounds[..., 0], rounds[..., 1]
+
+
+def _check_schedule(phases, final_sweeps_rest) -> None:
+    if final_sweeps_rest is not None:
+        raise ValueError("final_sweeps_rest is not carried by the port: no "
+                         "shipped schedule uses it")
+    for phase in phases:
+        if len(phase) != 3:
+            raise ValueError(f"phase {phase!r} must be (outer_iters, "
+                             "dykstra_iters, jacobi_sweeps); the 4-tuple "
+                             "sweeps_rest form is not carried by the port")
+
+
+# ----------------------------------------------------------------------
+# Plain PyTorch building blocks on (B, n, n) real/imag planes
+# ----------------------------------------------------------------------
+
+def _cmul(xr, xi, yr, yi):
+    return xr * yr - xi * yi, xr * yi + xi * yr
+
+
+def _rotation_coeffs(apq_r, apq_i, app, aqq, eps: float):
+    """Jacobi rotation coefficients (c, s, e_r, e_i), elementwise."""
+    m2 = apq_r * apq_r + apq_i * apq_i
+    m = torch.sqrt(m2)
+    small = m < eps
+    msafe = torch.where(small, 1.0, m)
+    e_r = torch.where(small, 1.0, apq_r / msafe)
+    e_i = torch.where(small, 0.0, apq_i / msafe)
+    tau = (aqq - app) / (2 * msafe)
+    sign_tau = torch.where(tau < 0, -1.0, 1.0)
+    t = torch.where(tau == 0.0, 1.0,
+                    sign_tau / (torch.abs(tau) + torch.sqrt(1 + tau * tau)))
+    c = torch.rsqrt(1 + t * t)
+    s = t * c
+    c = torch.where(small, 1.0, c)
+    s = torch.where(small, 0.0, s)
+    return c, s, e_r, e_i
+
+
+def _rotate_pair(pr, pi, qr, qi, c, s, fq, fp):
+    """(p, q) <- (c p - s fq*q, s fp*p + c q) with unit phases fq, fp."""
+    tq = _cmul(fq[0], fq[1], qr, qi)
+    new_p = (c * pr - s * tq[0], c * pi - s * tq[1])
+    tp = _cmul(fp[0], fp[1], pr, pi)
+    new_q = (s * tp[0] + c * qr, s * tp[1] + c * qi)
+    return new_p, new_q
+
+
+def _multi_sweep(a_r, a_i, v_r, v_i, eps: float, sweeps: int):
+    """``sweeps`` cyclic-Jacobi sweeps on (B, n, n) planes, rotating A
+    (columns then rows) and the columns of V jointly, in the round order of
+    :func:`_round_robin_pairs`."""
+    n = a_r.shape[-1]
+    P, Q = _pair_index(n, a_r.device)
+    for _ in range(sweeps):
+        for r in range(n - 1):
+            p, q = P[r], Q[r]
+            c, s, e_r, e_i = _rotation_coeffs(a_r[:, p, q], a_i[:, p, q],
+                                              a_r[:, p, p], a_r[:, q, q], eps)
+            e, ebar = (e_r, e_i), (e_r, -e_i)
+
+            def rotate_cols(x_r, x_i):
+                cc, ss = c[:, None, :], s[:, None, :]
+                fq = (ebar[0][:, None, :], ebar[1][:, None, :])
+                fp = (e[0][:, None, :], e[1][:, None, :])
+                new_p, new_q = _rotate_pair(x_r[..., p], x_i[..., p],
+                                            x_r[..., q], x_i[..., q],
+                                            cc, ss, fq, fp)
+                out_r, out_i = torch.empty_like(x_r), torch.empty_like(x_i)
+                out_r[..., p], out_i[..., p] = new_p
+                out_r[..., q], out_i[..., q] = new_q
+                return out_r, out_i
+
+            a_r, a_i = rotate_cols(a_r, a_i)
+            cc, ss = c[:, :, None], s[:, :, None]
+            fq = (e[0][:, :, None], e[1][:, :, None])
+            fp = (ebar[0][:, :, None], ebar[1][:, :, None])
+            new_p, new_q = _rotate_pair(a_r[:, p], a_i[:, p], a_r[:, q],
+                                        a_i[:, q], cc, ss, fq, fp)
+            out_r, out_i = torch.empty_like(a_r), torch.empty_like(a_i)
+            out_r[:, p], out_i[:, p] = new_p
+            out_r[:, q], out_i[:, q] = new_q
+            a_r, a_i = out_r, out_i
+            v_r, v_i = rotate_cols(v_r, v_i)
+    return a_r, a_i, v_r, v_i
+
+
+def _cmm(ar, ai, br, bi):
+    """C = A @ B on (B, n, n) planes."""
+    return ar @ br - ai @ bi, ar @ bi + ai @ br
+
+
+def _cmm_hconj_left(vr, vi, br, bi):
+    """C = V^dag @ B on (B, n, n) planes."""
+    vrt, vit = vr.transpose(-1, -2), vi.transpose(-1, -2)
+    return vrt @ br + vit @ bi, vrt @ bi - vit @ br
+
+
+def _hermitianize(xr, xi):
+    return (xr + xr.transpose(-1, -2)) / 2, (xi - xi.transpose(-1, -2)) / 2
+
+
+def _warm_cp(hr, hi, vr, vi, sweeps: int, eps: float):
+    """CP projection with a carried eigenbasis: rotate H into V, run
+    ``sweeps`` Jacobi sweeps, clip negative eigenvalues, reconstruct.
+    Returns (pos_r, pos_i, V'_r, V'_i)."""
+    hr, hi = _hermitianize(hr, hi)
+    tr, ti = _cmm(hr, hi, vr, vi)
+    mr, mi = _cmm_hconj_left(vr, vi, tr, ti)
+    ar, _, wr, wi = _multi_sweep(mr, mi, vr, vi, eps, sweeps)
+    w = torch.diagonal(ar, dim1=-2, dim2=-1).clamp(min=0.0)[:, None, :]
+    wrt, wit = wr.transpose(-1, -2), wi.transpose(-1, -2)
+    pos_r = (wr * w) @ wrt + (wi * w) @ wit
+    pos_i = (wi * w) @ wrt - (wr * w) @ wit
+    return pos_r, pos_i, wr, wi
+
+
+def _proj_tp(xr, xi, dim: int):
+    """Trace-preserving projection on (B, d2, d2) planes (eq. 12 of [PGD]):
+    X - kron(Tr_out(X) - I, I) / dim."""
+    b, n = xr.shape[0], dim * dim
+    x5r = xr.reshape(b, dim, dim, dim, dim)
+    x5i = xi.reshape(b, dim, dim, dim, dim)
+    pt_r = torch.diagonal(x5r, dim1=2, dim2=4).sum(-1)      # (B, dim, dim)
+    pt_i = torch.diagonal(x5i, dim1=2, dim2=4).sum(-1)
+    eye = torch.eye(dim, dtype=xr.dtype, device=xr.device)
+    dr = (pt_r - eye) / dim
+    di = pt_i / dim
+    eye5 = eye.reshape(1, 1, dim, 1, dim)
+    cr = dr[:, :, None, :, None] * eye5
+    ci = di[:, :, None, :, None] * eye5
+    return (x5r - cr).reshape(b, n, n), (x5i - ci).reshape(b, n, n)
+
+
+def _restart(t_next, new_cost, old_cost):
+    """O'Donoghue-Candes function restart: the momentum parameter goes back
+    to 1 for every problem whose cost rose."""
+    return torch.where(new_cost > old_cost, 1.0, t_next)
+
+
+def _dykstra(zr, zi, vr, vi, iters: int, sweeps: int, dim: int, eps: float):
+    """``iters`` Dykstra iterations (warm-V CP, then TP); ends on TP."""
+    cp_ch_r = cp_ch_i = tp_ch_r = tp_ch_i = torch.zeros_like(zr)
+    st_r, st_i = zr, zi
+    for _ in range(iters):
+        pre_r, pre_i = st_r - cp_ch_r, st_i - cp_ch_i
+        cp_r, cp_i, vr, vi = _warm_cp(pre_r, pre_i, vr, vi, sweeps, eps)
+        cp_ch_r, cp_ch_i = cp_r - pre_r, cp_i - pre_i
+        pre_r, pre_i = cp_r - tp_ch_r, cp_i - tp_ch_i
+        st_r, st_i = _proj_tp(pre_r, pre_i, dim)
+        tp_ch_r, tp_ch_i = st_r - pre_r, st_i - pre_i
+    return st_r, st_i, vr, vi
+
+
+# ----------------------------------------------------------------------
+# Host-side preparation
+# ----------------------------------------------------------------------
+
+def raster_a_matrix(a: torch.Tensor, d2: int) -> torch.Tensor:
+    """Permute the PGDB A-matrix columns from vec (column-stacking) order to
+    raster (row-major) order, so that
+    ``raster_a_matrix(A) @ X.reshape(-1) == A @ vec(X)``."""
+    a = torch.as_tensor(a)
+    return a.reshape(-1, d2, d2).transpose(1, 2).reshape(a.shape[0], d2 * d2)
+
+
+def linear_inversion_start(a_pinv: torch.Tensor, n_counts: torch.Tensor,
+                           dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hermitian, trace-``dim`` linear-inversion estimates ``unvec(pinv(A) n)``
+    as (B, d2, d2) real/imag planes of ``a_pinv``'s real dtype."""
+    d2 = dim * dim
+    with full_f32_matmul():
+        x0 = n_counts.to(a_pinv.dtype) @ a_pinv.T            # (B, d4), vec order
+    rho0 = x0.reshape(-1, d2, d2).transpose(1, 2)            # unvec
+    rho0 = (rho0 + rho0.transpose(1, 2).conj()) / 2
+    tr = torch.diagonal(rho0, dim1=1, dim2=2).sum(-1).real
+    scale = dim / torch.where(tr.abs() < 1e-12, 1.0, tr)
+    rho0 = rho0 * scale[:, None, None]
+    return rho0.real.contiguous(), rho0.imag.contiguous()
+
+
+# ----------------------------------------------------------------------
+# The plain version of the fused solve
+# ----------------------------------------------------------------------
+
+def apg_fused_reference(ar, ai, n, rho0_r, rho0_i, *, dim: int,
+                        phases: Sequence[Tuple[int, int, int]] = PARITY_PHASES,
+                        init_iters: int = 8, init_sweeps: int = 3,
+                        final_iters: int = 20, final_sweeps: int = 1,
+                        final_sweeps_rest: Optional[int] = None,
+                        mu: Optional[float] = None):
+    """The fused APG solve in plain PyTorch, batch-first.
+
+    :param ar, ai: (R, d4) real/imag planes of the raster-ordered A-matrix.
+    :param n: (B, R) normalized counts, one row per problem.
+    :param rho0_r, rho0_i: (B, d2, d2) starting matrices; they are
+        Dykstra-projected before the first gradient step.
+    :param phases: static schedule of (outer_iters, dykstra_iters, sweeps).
+    :param init_iters/init_sweeps: Dykstra schedule projecting rho0.
+    :param final_iters/final_sweeps: the projection applied to the returned
+        estimate (ends on the TP half-step; exactly TP).
+    :return: (est_r, est_i) planes of shape (B, d2, d2).
+    """
+    _check_schedule(phases, final_sweeps_rest)
+    rdtype = ar.dtype
+    eps_rot = 1e-30 if rdtype == torch.float64 else 1e-18
+    eps_p = 1e-6
+    if mu is None:
+        mu = 3.0 / (2 * dim ** 2)
+    inv_mu = 1.0 / mu
+    b, nd = rho0_r.shape[0], dim * dim
+
+    def prob(xr, xi):
+        p = xr.reshape(b, -1) @ ar.T - xi.reshape(b, -1) @ ai.T   # (B, R)
+        return p.clamp(min=eps_p)
+
+    def cost(xr, xi):
+        return -(n * torch.log(prob(xr, xi))).sum(-1)              # (B,)
+
+    def grad(xr, xi):
+        eta = n / prob(xr, xi)
+        return (-(eta @ ar)).reshape(b, nd, nd), (eta @ ai).reshape(b, nd, nd)
+
+    with full_f32_matmul():
+        v_r = torch.eye(nd, dtype=rdtype, device=ar.device).expand(b, nd, nd)
+        v_i = torch.zeros_like(v_r)
+        est_r, est_i, v_r, v_i = _dykstra(rho0_r, rho0_i, v_r, v_i, init_iters,
+                                          init_sweeps, dim, eps_rot)
+        prev_r, prev_i = est_r, est_i
+        t = torch.ones(b, dtype=rdtype, device=ar.device)
+        old_cost = cost(est_r, est_i)
+        for iters, ld, sweeps in phases:
+            for _ in range(iters):
+                t_next = (1 + torch.sqrt(1 + 4 * t * t)) / 2
+                beta = ((t - 1) / t_next)[:, None, None]
+                y_r = est_r + beta * (est_r - prev_r)
+                y_i = est_i + beta * (est_i - prev_i)
+                g_r, g_i = grad(y_r, y_i)
+                z_r = y_r - inv_mu * g_r
+                z_i = y_i - inv_mu * g_i
+                cand_r, cand_i, v_r, v_i = _dykstra(z_r, z_i, v_r, v_i, ld,
+                                                    sweeps, dim, eps_rot)
+                new_cost = cost(cand_r, cand_i)
+                t = _restart(t_next, new_cost, old_cost)
+                prev_r, prev_i, est_r, est_i = est_r, est_i, cand_r, cand_i
+                old_cost = new_cost
+        est_r, est_i, _, _ = _dykstra(est_r, est_i, v_r, v_i, final_iters,
+                                      final_sweeps, dim, eps_rot)
+    return est_r, est_i
+
+
+# ----------------------------------------------------------------------
+# The CUDA kernel and the wrapper
+# ----------------------------------------------------------------------
+
+def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
+                     phases: Sequence[Tuple[int, int, int]] = PARITY_PHASES,
+                     init_iters: int = 8, init_sweeps: int = 3,
+                     final_iters: int = 20, final_sweeps: int = 1,
+                     mu: Optional[float] = None):
+    """Launch ``csrc/apg_fused.cu`` on PyTorch's current stream.
+
+    Takes what :func:`apg_fused_reference` takes, as contiguous float32
+    CUDA tensors, and returns the same (est_r, est_i) planes. Adds one to
+    ``apg_fused.launches`` per launch."""
+    if dim != 4:
+        raise NotImplementedError(
+            f"the CUDA fused solver is built for dim=4 (2Q) only, got "
+            f"dim={dim}; the dim=2 kernel is ROADMAP.md queue 2 work")
+    if len(phases) > kernels.MAX_PHASES:
+        raise ValueError(f"the CUDA kernel takes at most {kernels.MAX_PHASES} "
+                         f"phases, got {len(phases)}")
+    rows, d4 = ar.shape
+    b = n.shape[0]
+    for name, x, shape in (("ar", ar, (rows, d4)), ("ai", ai, (rows, d4)),
+                           ("n", n, (b, rows)), ("rho0_r", rho0_r, (b, 16, 16)),
+                           ("rho0_i", rho0_i, (b, 16, 16))):
+        if x.device != ar.device or not x.is_cuda:
+            raise ValueError(f"{name} must be on {ar.device}, got {x.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if d4 != 256:
+        raise ValueError(f"A must have 256 columns for dim=4, got {d4}")
+    if mu is None:
+        mu = 3.0 / (2 * dim ** 2)
+    sched = kernels.ApgSchedule(
+        n_phases=len(phases), init_iters=init_iters, init_sweeps=init_sweeps,
+        final_iters=final_iters, final_sweeps=final_sweeps, inv_mu=1.0 / mu)
+    for k, (outer, ld, sweeps) in enumerate(phases):
+        sched.outer[k], sched.dykstra[k], sched.sweeps[k] = outer, ld, sweeps
+    out_r = torch.empty_like(rho0_r)
+    out_i = torch.empty_like(rho0_i)
+    lib = kernels.load()
+    with torch.cuda.device(ar.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.apg_fused_launch(
+            ar.data_ptr(), ai.data_ptr(), n.data_ptr(), rho0_r.data_ptr(),
+            rho0_i.data_ptr(), out_r.data_ptr(), out_i.data_ptr(), b, rows,
+            ctypes.byref(sched), stream)
+    if err != 0:
+        raise RuntimeError(f"apg_fused kernel launch failed: CUDA error "
+                           f"{err} ({kernels.error_string(err)})")
+    apg_fused.launches += 1
+    return out_r, out_i
+
+
+def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,
+              phases: Sequence[Tuple[int, int, int]] = PARITY_PHASES,
+              init_iters: int = 8, init_sweeps: int = 3,
+              final_iters: int = 20, final_sweeps: int = 1,
+              final_sweeps_rest: Optional[int] = None,
+              mu: Optional[float] = None,
+              a_pinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused-APG batched PGDB MLE: (R, d4) complex A-matrix (vec order),
+    (B, R) counts -> (B, d2, d2) complex Choi estimates.
+
+    Warm-starts from the linear-inversion estimate (``pinv(A) n``, computed
+    with torch outside the solve, as the JAX package does outside its
+    kernel), then runs the static-schedule solve: the CUDA kernel when the
+    inputs are CUDA tensors (dim=4, complex64 A), the plain PyTorch version
+    when they are CPU tensors. ``a_pinv`` ((d4, R), optional) is a
+    precomputed ``pinv(A)``; production callers compute it once per A-matrix.
+
+    ``apg_fused.launches`` counts the kernel launches.
+    """
+    _check_schedule(phases, final_sweeps_rest)
+    if n_counts.device != a.device:
+        raise ValueError(f"counts on {n_counts.device} but A on {a.device}")
+    d2 = dim * dim
+    a_rast = raster_a_matrix(a, d2)
+    ar = a_rast.real.contiguous()
+    ai = a_rast.imag.contiguous()
+    if a_pinv is None:
+        a_pinv = torch.linalg.pinv(a)
+    rho0_r, rho0_i = linear_inversion_start(a_pinv, n_counts, dim)
+    n_mat = n_counts.to(ar.dtype).contiguous()
+    kw = dict(dim=dim, phases=tuple(phases), init_iters=init_iters,
+              init_sweeps=init_sweeps, final_iters=final_iters,
+              final_sweeps=final_sweeps, mu=mu)
+    if a.is_cuda:
+        est_r, est_i = apg_fused_kernel(ar, ai, n_mat, rho0_r, rho0_i, **kw)
+    elif a.device.type == "cpu":
+        est_r, est_i = apg_fused_reference(ar, ai, n_mat, rho0_r, rho0_i, **kw)
+    else:
+        raise ValueError(f"unsupported device {a.device}")
+    return torch.complex(est_r, est_i).to(a.dtype)
+
+
+apg_fused.launches = 0

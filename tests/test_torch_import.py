@@ -1,0 +1,79 @@
+"""The PyTorch port imports without JAX or a kernel toolchain, and carries the
+JAX package's schedule constants."""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from forest_benchmarking_tpu.ops import lanes_apg as jax_lanes
+from forest_benchmarking_tpu_torch.benchmarks import (
+    process_tomo_A_matrix, synth_process_datasets)
+from forest_benchmarking_tpu_torch.ops import lanes_apg
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, json, os, pkgutil, sys
+before = set(sys.modules)
+import forest_benchmarking_tpu_torch as pkg
+from forest_benchmarking_tpu_torch import kernels
+build = kernels.BUILD_DIR
+files_before = sorted(os.listdir(build)) if build.exists() else None
+names = sorted(m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                    pkg.__name__ + '.'))
+for name in names:
+    importlib.import_module(name)
+new = sorted(set(sys.modules) - before)
+print(json.dumps({
+    "names": names,
+    "jax": [m for m in new if m == "jax" or m.startswith("jax.")],
+    "triton": "triton" in sys.modules,
+    "cpp_extension": "torch.utils.cpp_extension" in sys.modules,
+    "loaded": kernels.load.cache_info().currsize,
+    "build_unchanged": files_before == (sorted(os.listdir(build))
+                                        if build.exists() else None),
+}))
+"""
+
+
+def test_port_imports_without_jax_or_toolchain():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300,
+                         check=True)
+    info = json.loads(out.stdout.strip().splitlines()[-1])
+    for name in ("benchmarks", "tomography", "kernels", "ops.calculational",
+                 "ops.lanes_apg", "ops.random_operators",
+                 "ops.superoperator_transformations"):
+        assert f"forest_benchmarking_tpu_torch.{name}" in info["names"]
+    assert info["jax"] == []
+    assert not info["triton"]
+    assert not info["cpp_extension"]
+    assert info["loaded"] == 0
+    assert info["build_unchanged"]
+
+
+def test_schedule_constants_equal_jax():
+    assert lanes_apg.PARITY_PHASES == jax_lanes.PARITY_PHASES
+    assert lanes_apg.PARITY_TUNED_2Q == jax_lanes.PARITY_TUNED_2Q
+    assert lanes_apg.HEADLINE_TUNED_2Q == jax_lanes.HEADLINE_TUNED_2Q
+    assert lanes_apg._round_robin_pairs(16) == jax_lanes._round_robin_pairs(16)
+
+
+def test_cpu_wrapper_runs_plain_version_without_launching():
+    a = torch.tensor(process_tomo_A_matrix(1))
+    n, _ = synth_process_datasets(torch.Generator().manual_seed(3), a, 2, 2,
+                                  500, dtype=torch.float64)
+    before = lanes_apg.apg_fused.launches
+    est = lanes_apg.apg_fused(a, n, 2, phases=((2, 1, 1),), init_iters=1,
+                              final_iters=1)
+    assert lanes_apg.apg_fused.launches == before == 0
+    assert est.shape == (2, 4, 4) and est.device.type == "cpu"
+    assert np.all(np.isfinite(est.numpy()))
