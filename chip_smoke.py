@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke check of the PyTorch port's main path (BASELINE config 2).
+"""On-card smoke check of the PyTorch port's main paths: batched 2Q process
+tomography (BASELINE config 2) and batched quantum volume (config 5).
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
@@ -25,14 +26,52 @@ Phases, each of which must pass:
 5. timing with CUDA events (one warm-up, median of 3) at B = 16384 of the
    warm start, of the kernel and of the plain version of the solve (both
    from the same warm start); the B = 16384 check of phase 3 uses the
-   outputs of these timed runs.
+   outputs of these timed runs;
+6. the quantum-volume kernels against their plain versions on the same
+   inputs, at depth 8 and T = 256, depth 7 (odd) and T = 256, and depth 8
+   and T = 500 (a last tile of 4 of its 8 trajectories), C = 16 circuits,
+   2% two-qubit depolarizing noise. Ideal: within 2e-6 of the plain f32
+   version and 1e-5 of the plain f64 version. Trajectory: more than 97% of
+   trajectories within 1e-4 of the plain f32 version (the rest flip a branch
+   where u is within f32 round-off of a cumulative sum), columns summing to
+   1 within 1e-5;
+7. the quantum-volume main path at full width through
+   ``quantum_volume.sample_heavy_outputs_batched(device="cuda")``: depth 8,
+   C = 1600 circuits, 1000 shots, ideal and with 2% depolarizing noise by
+   the trajectory method at T = 1000. Each kernel's launch counter, zeroed
+   just before, must move; the heavy-output probability must lie in
+   [0.83, 0.87] (ideal; the asymptote is (1 + ln 2)/2 = 0.847) and
+   [0.60, 0.72] (noisy), and within 4 binomial sigma of the same path run
+   on the card with the plain versions in place of the kernels;
+8. timing with CUDA events (one warm-up, median of 3) at C = 1600 (T = 1000)
+   of each quantum-volume kernel alone (on laid-out inputs), of its wrapper
+   and of its plain version, with circuits/s, the bound and the share of the
+   bound; the full-size kernel-against-plain check uses these outputs. The
+   Haar draw of a depth-8 call (Gram-Schmidt) beside ``torch.linalg.qr``
+   on a draw of the same size (one warm-up, one run). Then
+   ``quantum_volume.measure_quantum_volume_batched(max_depth=8,
+   num_circuits=1600)`` end to end, ideal and noisy (depths 2-6 by the
+   density method, 7-8 by trajectories), on the host clock, and a
+   ``torch.profiler`` pass over one main-path call each, ideal and noisy:
+   kernel launches, device busy time, the top kernels and host operations.
 
-The second-to-last line is the per-kernel JSON record (``max_abs_err``: the
-largest |kernel - plain f64| of the B = 16384 check; ``ms``/``plain_ms``:
-the headline schedule's solve times), the last line ``{"ok": true, ...}``.
-Exits non-zero, printing no result, if CUDA is unavailable or any phase fails.
+The second-to-last line is the per-kernel JSON record: ``launches`` from
+the main paths; ``ms``/``plain_ms``: the kernel alone and the plain version
+at the main path's size (APG: headline schedule); ``bound_ms``: the larger
+of the operations over 67 TFLOP/s (f32 outside the tensor cores) and the
+bytes of the function's own inputs, each read once, and its output, written
+once, over 3.35 TB/s (not the layouts a wrapper derives from them);
+``max_abs_err``: APG, the largest |kernel - plain f64| of the B = 16384
+check; ideal, the largest |kernel - plain f32| at C = 1600; trajectory, the
+same over the trajectories whose branch choices agree (column deviation
+under 1e-4), with ``agree_share``, the share of trajectories that do, and
+``max_abs_err_all``, the largest deviation over all of them. The last line
+is ``{"ok": true, ...}``. Exits non-zero,
+printing no result, if CUDA is unavailable or any phase fails.
 """
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -46,6 +85,15 @@ BATCH = 16384
 SHOTS = 2000
 CHECK_BATCH = 256
 SCHEDULES = ("headline", "parity")
+QV_DEPTH = 8
+QV_CIRCUITS = 1600
+QV_SHOTS = 1000
+QV_TRAJ = 1000
+QV_DEPOL = 0.02
+QV_CHECK_C = 16        # circuits of the phase-6 check
+QV_CHECKS = ((QV_DEPTH, 256), (QV_DEPTH - 1, 256), (QV_DEPTH, 500))
+PEAK_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
+PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 
 
 class SmokeFailure(RuntimeError):
@@ -112,15 +160,65 @@ def against_plain(lanes_apg, name, kern, in32, in64, n, cfg, plain32=None):
     return dev_k
 
 
+def bound_ms(flops: float, n_bytes: float):
+    """(least time in ms, what bounds it) at the card's published peaks."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, n_bytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@contextlib.contextmanager
+def plain_versions(pallas_traj):
+    """Run the quantum-volume entry points with the kernels' plain versions
+    in their place (the module attributes the entry points call)."""
+    saved = pallas_traj.ideal_probs, pallas_traj.traj_probs
+    pallas_traj.ideal_probs = pallas_traj.ideal_probs_reference
+    pallas_traj.traj_probs = pallas_traj.traj_probs_reference
+    try:
+        yield
+    finally:
+        pallas_traj.ideal_probs, pallas_traj.traj_probs = saved
+
+
+def qv_inputs(quantum_volume, haar_rand_unitary, gen, depth, circuits,
+              n_traj):
+    """Circuits and uniforms drawn on the card in the entry point's order."""
+    perms = quantum_volume._sample_perms(gen, circuits, depth)
+    gates = haar_rand_unitary(gen, 4, batch=(circuits, depth, depth // 2),
+                              dtype=torch.float32)
+    uniforms = torch.rand((circuits, depth, depth // 2, n_traj),
+                          generator=gen, device=gen.device)
+    return perms, gates, uniforms
+
+
+def traj_agreement(kern: torch.Tensor, plain: torch.Tensor):
+    """(share of trajectories within 1e-4 of the plain version, the largest
+    deviation over those, the largest over all, the largest column-sum error
+    of the kernel)."""
+    col = (kern - plain).abs().amax(dim=1)
+    agree = col < 1e-4
+    return (agree.float().mean().item(),
+            col[agree].max().item() if bool(agree.any()) else float("nan"),
+            col.max().item(), (kern.sum(1) - 1).abs().max().item())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
-    from forest_benchmarking_tpu_torch import kernels, tomography
+    from forest_benchmarking_tpu_torch import (
+        kernels, quantum_volume, tomography)
     from forest_benchmarking_tpu_torch.benchmarks import (
         inputs_from_numpy, process_tomo_A_matrix, synth_process_datasets)
-    from forest_benchmarking_tpu_torch.ops import lanes_apg
+    from forest_benchmarking_tpu_torch.ops import lanes_apg, pallas_traj
+    from forest_benchmarking_tpu_torch.ops.random_operators import (
+        haar_rand_unitary)
+    from forest_benchmarking_tpu_torch.sim.noise import depolarizing_kraus_map
 
     dev = torch.device("cuda", 0)
     configs = {"headline": lanes_apg.HEADLINE_TUNED_2Q,
@@ -204,16 +302,215 @@ def main() -> int:
             lanes_apg, name, torch.complex(*kern), in32, in64, n, cfg,
             plain32=torch.complex(*plain32)))
 
-    print(json.dumps({"kernels": [{
-        "name": "apg_fused",
-        "route": "cuda",
-        "source": "forest_benchmarking_tpu_torch/csrc/apg_fused.cu",
-        "replaces": "forest_benchmarking_tpu/ops/lanes_apg.py:674",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": timing["headline"][0],
-        "plain_ms": timing["headline"][1],
-    }]}))
+    apg_bounds = {name: bound_ms(
+        BATCH * lanes_apg.apg_fused_flops_per_solve(a_np.shape[0],
+                                                    **configs[name]),
+        nbytes(in32.ar, in32.ai, n, *rho0, *rho0))   # output: as rho0
+        for name in SCHEDULES}
+    for name, (ms_b, by) in apg_bounds.items():
+        print(f"bound apg_fused {name}: {ms_b:.3f} ms ({by}), kernel at "
+              f"{100 * ms_b / timing[name][0]:.1f}% of it")
+    apg_bound = apg_bounds["headline"]
+
+    # 6. the quantum-volume kernels against their plain versions
+    ks = depolarizing_kraus_map(QV_DEPOL)
+    kraus = torch.tensor(np.stack([np.kron(x, y) for x in ks for y in ks]),
+                         dtype=torch.complex64, device=dev)
+    for depth, n_traj in QV_CHECKS:
+        perms, gates, uni = qv_inputs(quantum_volume, haar_rand_unitary,
+                                      gen, depth, QV_CHECK_C, n_traj)
+        kern = pallas_traj.ideal_probs_kernel(perms, gates, depth)
+        plain32 = pallas_traj.ideal_probs_reference(perms, gates, depth)
+        plain64 = pallas_traj.ideal_probs_reference(
+            perms, gates.to(torch.complex128), depth)
+        torch.cuda.synchronize()
+        e32 = (kern - plain32).abs().max().item()
+        e64 = (kern.double() - plain64).abs().max().item()
+        print(f"check ideal_probs: depth {depth} C={QV_CHECK_C} "
+              f"max|kernel-plain32|={e32:.3e} max|kernel-plain64|={e64:.3e}")
+        check(e32 <= 2e-6 and e64 <= 1e-5,
+              f"ideal_probs depth {depth}: {e32:.3e} / {e64:.3e}")
+        kern = pallas_traj.traj_probs_kernel(perms, gates, kraus, uni, depth)
+        plain = pallas_traj.traj_probs_reference(perms, gates, kraus, uni,
+                                                 depth)
+        share, dev_max, dev_all, norm = traj_agreement(kern, plain)
+        print(f"check traj_probs: depth {depth} C={QV_CHECK_C} "
+              f"T={n_traj} within 1e-4: {100 * share:.2f}% "
+              f"(max there {dev_max:.3e}, over all {dev_all:.3e}) "
+              f"column-sum error {norm:.3e}")
+        check(share > 0.97 and norm < 1e-5,
+              f"traj_probs depth {depth}: {share:.4f} agree, sums {norm:.3e}")
+
+    # 7. the quantum-volume main path at full width
+    def heavy_path(seed, noisy):
+        kw = (dict(kraus=kraus, noisy_method="trajectory",
+                   num_trajectories=QV_TRAJ) if noisy else {})
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts = quantum_volume.sample_heavy_outputs_batched(
+            torch.Generator(device=dev).manual_seed(seed), QV_DEPTH,
+            QV_CIRCUITS, QV_SHOTS, device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        check(counts.shape == (QV_CIRCUITS,) and bool(
+            ((counts >= 0) & (counts <= QV_SHOTS)).all()),
+            "heavy counts out of range")
+        return (counts.sum().item() / (QV_CIRCUITS * QV_SHOTS),
+                torch.cuda.max_memory_allocated() / 2 ** 30, wall)
+
+    qv_launches = {}
+    for name, noisy, lo, hi in (("ideal", False, 0.83, 0.87),
+                                ("noisy", True, 0.60, 0.72)):
+        pallas_traj.ideal_probs.launches = 0
+        pallas_traj.traj_probs.launches = 0
+        prob, peak, wall = heavy_path(SEED + 1, noisy)
+        moved = (pallas_traj.ideal_probs.launches,
+                 pallas_traj.traj_probs.launches)
+        with plain_versions(pallas_traj):
+            prob_p, peak_p, wall_p = heavy_path(SEED + 1, noisy)
+        total = QV_CIRCUITS * QV_SHOTS
+        sigma = math.sqrt((prob * (1 - prob) + prob_p * (1 - prob_p)) / total)
+        print(f"main path QV {name}: depth {QV_DEPTH} C={QV_CIRCUITS} "
+              f"shots={QV_SHOTS}{f' T={QV_TRAJ} p={QV_DEPOL}' if noisy else ''}"
+              f" launches ideal/traj={moved[0]}/{moved[1]} heavy-output "
+              f"probability {prob:.5f} (plain versions {prob_p:.5f}, "
+              f"|diff| = {abs(prob - prob_p) / sigma:.2f} sigma) peak memory "
+              f"{peak:.2f} GiB (plain {peak_p:.2f} GiB) host clock "
+              f"{wall:.3f} ms (plain {wall_p:.3f} ms)")
+        check(moved[0] > 0, f"QV {name}: the ideal kernel was not launched")
+        check(moved[1] > 0 or not noisy,
+              f"QV {name}: the trajectory kernel was not launched")
+        check(lo <= prob <= hi, f"QV {name}: heavy-output probability {prob}")
+        check(abs(prob - prob_p) <= 4 * sigma,
+              f"QV {name}: kernel and plain paths differ by "
+              f"{abs(prob - prob_p) / sigma:.2f} sigma")
+        qv_launches["ideal_probs"] = qv_launches.get("ideal_probs", 0) + moved[0]
+        qv_launches["traj_probs"] = qv_launches.get("traj_probs", 0) + moved[1]
+
+    # 8. timing at full width, and the kernels against plain versions there
+    perms, gates, uni = qv_inputs(quantum_volume, haar_rand_unitary, gen,
+                                  QV_DEPTH, QV_CIRCUITS, QV_TRAJ)
+    ideal_in = pallas_traj._ideal_kernel_inputs(perms, gates, QV_DEPTH)
+    ms_i, kern_i = cuda_ms(lambda: pallas_traj._ideal_launch(*ideal_in,
+                                                             QV_DEPTH))
+    ms_iw, _ = cuda_ms(lambda: pallas_traj.ideal_probs_kernel(perms, gates,
+                                                              QV_DEPTH))
+    ms_ip, plain_i = cuda_ms(lambda: pallas_traj.ideal_probs_reference(
+        perms, gates, QV_DEPTH))
+    err_i = (kern_i - plain_i).abs().max().item()
+    ideal_bound = bound_ms(
+        QV_CIRCUITS * pallas_traj.traj_flops_per_circuit(
+            QV_DEPTH, num_trajectories=1, noiseless=True),
+        nbytes(perms, gates, kern_i))
+    traj_in = pallas_traj._traj_kernel_inputs(perms, gates, kraus, uni,
+                                              QV_DEPTH)
+    ms_t, kern_t = cuda_ms(lambda: pallas_traj._traj_launch(
+        *traj_in, QV_DEPTH, kraus.shape[0]))
+    ms_tw, _ = cuda_ms(lambda: pallas_traj.traj_probs_kernel(
+        perms, gates, kraus, uni, QV_DEPTH))
+    torch.cuda.reset_peak_memory_stats()
+    ms_tp, plain_t = cuda_ms(lambda: pallas_traj.traj_probs_reference(
+        perms, gates, kraus, uni, QV_DEPTH))
+    peak_tp = torch.cuda.max_memory_allocated() / 2 ** 30
+    share_t, err_t, err_t_all, norm_t = traj_agreement(kern_t, plain_t)
+    traj_bound = bound_ms(
+        QV_CIRCUITS * pallas_traj.traj_flops_per_circuit(
+            QV_DEPTH, kraus.shape[0], QV_TRAJ),
+        nbytes(perms, gates, kraus, uni, kern_t))
+    for name, ms_k, ms_w, ms_p, bound in (
+            ("ideal_probs", ms_i, ms_iw, ms_ip, ideal_bound),
+            ("traj_probs", ms_t, ms_tw, ms_tp, traj_bound)):
+        print(f"timing {name}: depth {QV_DEPTH} C={QV_CIRCUITS}"
+              f"{f' T={QV_TRAJ}' if name == 'traj_probs' else ''} kernel "
+              f"{ms_k:.3f} ms ({QV_CIRCUITS / ms_k * 1e3:.0f} circuits/s), "
+              f"wrapper {ms_w:.3f} ms, plain {ms_p:.3f} ms "
+              f"({QV_CIRCUITS / ms_p * 1e3:.0f} circuits/s); bound "
+              f"{bound[0]:.3f} ms ({bound[1]}), kernel at "
+              f"{100 * bound[0] / ms_k:.1f}% of it, on {card}")
+    print(f"check ideal_probs: C={QV_CIRCUITS} max|kernel-plain32|="
+          f"{err_i:.3e}; traj_probs: T={QV_TRAJ} within 1e-4: "
+          f"{100 * share_t:.3f}% (max there {err_t:.3e}, over all "
+          f"{err_t_all:.3e}) column-sum error {norm_t:.3e}; plain traj_probs "
+          f"peak memory {peak_tp:.2f} GiB")
+    check(err_i <= 2e-6, f"ideal_probs at full width: {err_i:.3e}")
+    check(share_t > 0.97 and norm_t < 1e-5,
+          f"traj_probs at full width: {share_t:.4f} agree, sums {norm_t:.3e}")
+    del kern_t, plain_t, traj_in
+
+    # the Haar draw of one depth-8 call, against the library QR it replaces
+    batch = (QV_CIRCUITS, QV_DEPTH, QV_DEPTH // 2)
+    ms_h, _ = cuda_ms(lambda: haar_rand_unitary(gen, 4, batch=batch,
+                                                dtype=torch.float32))
+    z = torch.complex(torch.randn((*batch, 4, 4), generator=gen, device=dev),
+                      torch.randn((*batch, 4, 4), generator=gen, device=dev))
+    ms_q, _ = cuda_ms(lambda: torch.linalg.qr(z), reps=1)
+    print(f"timing Haar draw of {math.prod(batch)} 4x4 gates: Gram-Schmidt "
+          f"{ms_h:.3f} ms, torch.linalg.qr alone {ms_q:.3f} ms, on {card}")
+
+    for name, kw in (("ideal", {}), ("noisy", dict(kraus=kraus))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = quantum_volume.measure_quantum_volume_batched(
+            torch.Generator(device=dev).manual_seed(SEED + 2), max_depth=8,
+            num_circuits=QV_CIRCUITS, num_shots=QV_SHOTS,
+            stop_when_fail=False, device="cuda", **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(sorted(res) == list(range(2, 9)), f"QV scan {name}: {res}")
+        print(f"measure_quantum_volume_batched {name}: max_depth=8 "
+              f"C={QV_CIRCUITS} shots={QV_SHOTS} {secs:.3f} s; QV = "
+              f"{quantum_volume.extract_quantum_volume_from_results(res)}; "
+              + " ".join(f"d{d}={p:.4f}/{c:.4f}" for d, (p, c) in res.items()))
+
+    # where the time of one main-path call goes
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, kw in (("ideal", {}), ("noisy", dict(
+            kraus=kraus, noisy_method="trajectory",
+            num_trajectories=QV_TRAJ))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            quantum_volume.sample_heavy_outputs_batched(
+                torch.Generator(device=dev).manual_seed(SEED + 3), QV_DEPTH,
+                QV_CIRCUITS, QV_SHOTS, device="cuda", **kw)
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        gpu = sorted((e for e in ev
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+        busy = sum(e.self_device_time_total for e in gpu) / 1e3
+        print(f"profile QV {name}: {sum(e.count for e in gpu)} kernel "
+              f"launches, device busy {busy:.3f} ms")
+        for e in gpu[:5]:
+            print(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"x{e.count:<6d} {e.key[:64]}")
+        for e in sorted(ev, key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:5]:
+            print(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms "
+                  f"x{e.count:<6d} {e.key[:64]}")
+
+    def record(name, source, replaces, launch_count, err, ms_k, ms_p, bound):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launch_count,
+                "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None}
+
+    qv_src = "forest_benchmarking_tpu_torch/csrc/qv_traj.cu"
+    print(json.dumps({"kernels": [
+        record("apg_fused", "forest_benchmarking_tpu_torch/csrc/apg_fused.cu",
+               "forest_benchmarking_tpu/ops/lanes_apg.py:674", launches,
+               max_abs_err, timing["headline"][0], timing["headline"][1],
+               apg_bound),
+        dict(record("traj_probs", qv_src,
+                    "forest_benchmarking_tpu/ops/pallas_traj.py:301",
+                    qv_launches["traj_probs"], err_t, ms_t, ms_tp, traj_bound),
+             agree_share=share_t, max_abs_err_all=err_t_all),
+        record("ideal_probs", qv_src,
+               "forest_benchmarking_tpu/ops/pallas_traj.py:410",
+               qv_launches["ideal_probs"], err_i, ms_i, ms_ip, ideal_bound),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -12,6 +12,18 @@ cp_method="pallas")``, whose fused APG solve runs as a hand-written CUDA
 kernel (``csrc/apg_fused.cu``) on NVIDIA Hopper and as its plain PyTorch
 version on CPU tensors.
 
+Slice 2 covers the batched quantum-volume path:
+``quantum_volume.sample_heavy_outputs_batched`` and
+``quantum_volume.measure_quantum_volume_batched``, whose ideal-probability
+and Kraus-trajectory evolutions run as hand-written CUDA kernels
+(``csrc/qv_traj.cu``) on the card and as their plain PyTorch versions on CPU
+tensors; the exact density-matrix method is plain PyTorch.
+
+The package imports neither JAX nor the JAX package: it keeps its own
+copies of the host helpers it needs. The quantum-volume entry points run on
+the card unless the caller passes ``device="cpu"``; the tomography entry
+point runs where its input tensors lie.
+
 Importing the package builds nothing and imports no kernel toolchain: the
 CUDA library is compiled on first use by :mod:`.kernels`.
 """

@@ -1,9 +1,11 @@
-"""Benchmark problem builders for the config-2 path: the 2Q process-tomography
-A-matrix, synthetic count datasets, and the carry-across from numpy arrays.
+"""Benchmark problems: the 2Q process-tomography A-matrix, synthetic
+count datasets, and the carry-across from numpy arrays for the config-2
+(process MLE) and config-5 (quantum volume) paths.
 
 Port of ``forest_benchmarking_tpu/benchmarks.py``. This system has no
 weights: the A-matrix, its pseudo-inverse, the counts and the static solver
-schedules are the state that carries across between the two packages.
+schedules, and the quantum-volume circuit stacks and branch uniforms, are the
+state that carries across between the two packages.
 """
 from __future__ import annotations
 
@@ -14,7 +16,6 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from forest_benchmarking_tpu.paulis import pauli_term_to_matrix
 from forest_benchmarking_tpu_torch.ops.lanes_apg import (
     full_f32_matmul, raster_a_matrix)
 from forest_benchmarking_tpu_torch.ops.random_operators import (
@@ -22,9 +23,11 @@ from forest_benchmarking_tpu_torch.ops.random_operators import (
 from forest_benchmarking_tpu_torch.ops.superoperator_transformations import vec
 from forest_benchmarking_tpu_torch.tomography import (
     _pauli_process_tomo_settings, pgdb_a_row_pair, state_to_density)
+from forest_benchmarking_tpu_torch.utils import pauli_string_to_matrix
 
 __all__ = ["process_tomo_A_matrix", "synth_process_datasets",
-           "split_complex", "join_complex", "SolveInputs", "inputs_from_numpy"]
+           "split_complex", "join_complex", "SolveInputs", "inputs_from_numpy",
+           "QVInputs", "qv_inputs_from_numpy"]
 
 
 def split_complex(x: torch.Tensor) -> torch.Tensor:
@@ -45,13 +48,12 @@ def process_tomo_A_matrix(n_qubits: int) -> np.ndarray:
     (input eigenstate, observable) setting; p = A vec(choi) gives outcome
     probabilities. Host numpy, cached; treat the result as read-only.
     """
-    qubits = list(range(n_qubits))
     dim = 2 ** n_qubits
     eye = np.eye(dim)
     rows = []
-    for setting in _pauli_process_tomo_settings(qubits):
-        in_mat = state_to_density(setting.in_state, qubits)
-        op = pauli_term_to_matrix(setting.observable.copy(coefficient=1.0), qubits)
+    for states, obs in _pauli_process_tomo_settings(n_qubits):
+        in_mat = state_to_density(states)
+        op = pauli_string_to_matrix(obs)
         rows.extend(pgdb_a_row_pair(in_mat, op, eye))
     return np.stack(rows) / dim ** 2
 
@@ -114,3 +116,34 @@ def inputs_from_numpy(a: np.ndarray, n_counts: np.ndarray,
         n=torch.tensor(np.asarray(n_counts)).to(device=device, dtype=dtype),
         a_pinv=torch.tensor(np.asarray(a_pinv).astype(np.complex128)).to(
             device=device, dtype=cdtype))
+
+
+class QVInputs(NamedTuple):
+    """A quantum-volume circuit stack carried over from numpy arrays."""
+    perms: torch.Tensor               # (C, d, d) long qubit permutations
+    gates: torch.Tensor               # (C, d, d//2, 4, 4) complex Haar gates
+    kraus: Optional[torch.Tensor]     # (K, 4, 4) complex Kraus stack
+    uniforms: Optional[torch.Tensor]  # (C, d, d//2, T) branch uniforms
+
+
+def qv_inputs_from_numpy(perms: np.ndarray, gates: np.ndarray,
+                         kraus: Optional[np.ndarray] = None,
+                         uniforms: Optional[np.ndarray] = None, *,
+                         device, dtype: torch.dtype = torch.float32) -> QVInputs:
+    """Turn the JAX package's quantum-volume circuit stack, taken as numpy
+    arrays, into the port's tensors on ``device``: permutations as int64,
+    gates and Kraus operators as the complex dtype of the real ``dtype``,
+    uniforms as ``dtype``."""
+    cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+
+    def cplx(x):
+        return torch.tensor(np.asarray(x).astype(np.complex128)).to(
+            device=device, dtype=cdtype)
+
+    return QVInputs(
+        perms=torch.tensor(np.asarray(perms).astype(np.int64), device=device),
+        gates=cplx(gates),
+        kraus=None if kraus is None else cplx(kraus),
+        uniforms=None if uniforms is None else torch.tensor(
+            np.asarray(uniforms).astype(np.float64)).to(device=device,
+                                                        dtype=dtype))

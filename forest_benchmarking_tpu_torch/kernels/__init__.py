@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under ``forest_benchmarking_tpu_torch/csrc/`` are compiled on
-first use with ``nvcc`` for Hopper (``sm_90a``) into one shared library with
-a plain C interface, loaded with ``ctypes``. The library lands in
-``build/kernels/`` beside the package, named by a hash of the sources and the
-flags, so an edited source builds anew and an unchanged one loads at once.
-Nothing here runs at import time.
+Each source ``forest_benchmarking_tpu_torch/csrc/<name>.cu`` is compiled on
+first use with ``nvcc`` for Hopper (``sm_90a``) into a shared library of its
+own with a plain C interface, loaded with ``ctypes``; the ``nvcc`` processes
+of all sources run at once. The libraries land in ``build/kernels/`` beside
+the package, named by a hash of their source and the flags, so an edited
+source builds anew and an unchanged one loads at once. Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import types
 from pathlib import Path
 
 __all__ = ["ApgSchedule", "load", "build_log", "error_string", "CSRC",
@@ -24,7 +26,7 @@ __all__ = ["ApgSchedule", "load", "build_log", "error_string", "CSRC",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_PHASES = 8   # must match APG_MAX_PHASES in csrc/apg_fused.cu
 
 
@@ -43,16 +45,14 @@ class ApgSchedule(ctypes.Structure):
     ]
 
 
-def _sources():
-    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
-
-
-def _lib_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libfbt_kernels_{h.hexdigest()[:16]}.so"
+def _lib_paths() -> dict:
+    """{source stem: library path} for every ``.cu`` source."""
+    paths = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes())
+        name = f"libfbt_{src.stem}_{h.hexdigest()[:16]}.so"
+        paths[src.stem] = BUILD_DIR / name
+    return paths
 
 
 def _nvcc() -> str:
@@ -66,47 +66,70 @@ def _nvcc() -> str:
                        "toolkit (nvcc on PATH or CUDA_HOME set)")
 
 
-def _build(lib_path: Path) -> None:
+def _build(paths: dict) -> None:
+    """Compile every source at once, each into its library and its log."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)   # atomic: concurrent builds agree
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = {}
+        try:
+            for stem in paths:
+                so, src = os.path.join(tmp, stem + ".so"), CSRC / f"{stem}.cu"
+                procs[stem] = subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-shared", "-o", so, str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs = {stem: proc.communicate()[0] for stem, proc in procs.items()}
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for stem, path in paths.items():
+            path.with_suffix(".log").write_text(logs[stem])
+        failed = [stem for stem, proc in procs.items() if proc.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(
+                f"== {stem}.cu\n{logs[stem]}" for stem in failed))
+        for stem, path in paths.items():
+            os.replace(os.path.join(tmp, stem + ".so"), path)   # atomic
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; cached per process."""
-    lib_path = _lib_path()
-    if not lib_path.exists():
-        _build(lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    lib.apg_fused_launch.argtypes = [
+def load() -> types.SimpleNamespace:
+    """Build (if needed) and load the kernel libraries; their launch
+    functions, cached per process."""
+    paths = _lib_paths()
+    if not all(path.exists() for path in paths.values()):
+        _build(paths)
+    apg, qv = (ctypes.CDLL(str(paths[stem])) for stem in ("apg_fused",
+                                                          "qv_traj"))
+    apg.apg_fused_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ApgSchedule),
         ctypes.c_void_p]
-    lib.apg_fused_launch.restype = ctypes.c_int
-    lib.fbt_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.fbt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    apg.apg_fused_launch.restype = ctypes.c_int
+    qv.traj_probs_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    qv.traj_probs_launch.restype = ctypes.c_int
+    qv.ideal_probs_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    qv.ideal_probs_launch.restype = ctypes.c_int
+    apg.fbt_cuda_error_string.argtypes = [ctypes.c_int]
+    apg.fbt_cuda_error_string.restype = ctypes.c_char_p
+    return types.SimpleNamespace(
+        apg_fused_launch=apg.apg_fused_launch,
+        traj_probs_launch=qv.traj_probs_launch,
+        ideal_probs_launch=qv.ideal_probs_launch,
+        fbt_cuda_error_string=apg.fbt_cuda_error_string)
 
 
 def build_log() -> str:
     """The compiler's output (``-Xptxas -v``: registers, shared memory,
     spills) from the build of the current sources, or '' if not built here."""
-    log = _lib_path().with_suffix(".log")
-    return log.read_text() if log.exists() else ""
+    return "".join(f"== {stem}.cu\n{path.with_suffix('.log').read_text()}"
+                   for stem, path in _lib_paths().items()
+                   if path.with_suffix(".log").exists())
 
 
 def error_string(code: int) -> str:

@@ -32,7 +32,8 @@ from forest_benchmarking_tpu_torch import kernels
 
 __all__ = [
     "raster_a_matrix", "linear_inversion_start", "apg_fused_reference",
-    "apg_fused_kernel", "apg_fused", "full_f32_matmul",
+    "apg_fused_kernel", "apg_fused", "apg_fused_flops_per_solve",
+    "full_f32_matmul",
     "PARITY_PHASES", "PARITY_TUNED_2Q", "HEADLINE_TUNED_2Q",
 ]
 
@@ -394,6 +395,42 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
                            f"{err} ({kernels.error_string(err)})")
     apg_fused.launches += 1
     return out_r, out_i
+
+
+def apg_fused_flops_per_solve(rows: int, dim: int = 4,
+                              phases: Sequence[Tuple[int, int, int]] = PARITY_PHASES,
+                              init_iters: int = 8, init_sweeps: int = 3,
+                              final_iters: int = 20, final_sweeps: int = 1,
+                              mu: Optional[float] = None) -> float:
+    """Floating-point operations of one fused solve as the CUDA kernel
+    computes it (n = dim^2, R = ``rows``):
+
+    - passes over A: 1 for the first cost plus 3 per outer step (p = Re(A x)
+      and A^T eta at y, p for the candidate's cost), 4 R n^2 each (two real
+      multiply-adds per complex entry);
+    - per Dykstra iteration: hermitianize (2 n^2), the basis rotation
+      M = V^dag H V (two complex n x n products, 8 n^3 each), s Jacobi
+      sweeps (n - 1 rounds of rotations of M's columns and rows and V's
+      columns, ~36 n^2 per round), the reconstruction (8 n^3) and the TP
+      projection (~4 n^2).
+
+    ``mu`` (the step) does not change the count; it is accepted so that a
+    schedule dict can be passed whole.
+    """
+    n = dim * dim
+    per_pass = 4.0 * rows * n * n
+
+    def per_dykstra(sweeps):
+        return 2 * n * n + 16.0 * n ** 3 + sweeps * 36.0 * n * n * (n - 1) \
+            + 8.0 * n ** 3 + 4 * n * n
+
+    outer = sum(p[0] for p in phases)
+    total = (1 + 3 * outer) * per_pass
+    total += init_iters * per_dykstra(init_sweeps)
+    total += final_iters * per_dykstra(final_sweeps)
+    for iters, ld, sweeps in phases:
+        total += iters * ld * per_dykstra(sweeps)
+    return total
 
 
 def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,

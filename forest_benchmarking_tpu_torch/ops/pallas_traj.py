@@ -1,0 +1,357 @@
+"""Quantum-volume statevector kernels: plain PyTorch versions and CUDA
+kernel wrappers for the noisy trajectory probabilities and the ideal output
+probabilities of batched model circuits.
+
+Port of ``forest_benchmarking_tpu/ops/pallas_traj.py`` (``_boundary_maps``,
+``traj_probs_pallas``, ``ideal_probs_pallas``, ``traj_flops_per_circuit``),
+with the single-circuit helpers the JAX package keeps in its
+``quantum_volume.py`` (``_bit_permute_indices``, ``_simulate_qv_circuit``),
+so that :mod:`..quantum_volume` depends on this module and not the reverse.
+A model circuit of depth d has d layers; layer l permutes the qubits by
+``perms[l]`` and applies d//2 Haar 4x4 gates to the qubit pairs (j, j+1) of
+the permuted order. The noisy circuit follows every gate with a two-qubit
+Kraus channel on the same pair, unravelled into trajectories: each slot
+draws one branch with its Born weight from a uniform variate.
+
+- :func:`_boundary_maps` composes the per-layer index maps, so a layer
+  starts with ONE gather psi[x] <- psi[h_l[x]].
+- :func:`_fused_channel_ops` is the host-side preparation shared by the
+  plain version and the kernel: W_k = K_k U (the gate fused into the
+  sampled Kraus operator) and M'_k = U^dag K_k^dag K_k U (the branch
+  weights from the pre-gate state), as the JAX package prepares them.
+- :func:`traj_probs` and :func:`ideal_probs` dispatch: the CUDA kernels of
+  ``csrc/qv_traj.cu`` for tensors on the card, the plain versions
+  :func:`traj_probs_reference` and :func:`ideal_probs_reference` for tensors
+  on the CPU. Each counts its kernel launches in ``.launches``.
+
+Unlike the TPU kernels, the CUDA kernels take every depth from 2 to 10,
+odd depths included (the last qubit of an odd depth has no gate): the JAX
+package's depth >= 7 limit comes from the TPU's sublane tiling, not from the
+math.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from forest_benchmarking_tpu_torch import kernels
+from forest_benchmarking_tpu_torch.ops.lanes_apg import full_f32_matmul
+from forest_benchmarking_tpu_torch.sim.statevector import apply_gate_matrix
+
+__all__ = ["traj_probs_reference", "traj_probs_kernel", "traj_probs",
+           "ideal_probs_reference", "ideal_probs_kernel", "ideal_probs",
+           "traj_flops_per_circuit", "MIN_DEPTH", "MAX_DEPTH", "MAX_KRAUS"]
+
+MIN_DEPTH, MAX_DEPTH = 2, 10   # depths the CUDA kernels take
+MAX_KRAUS = 32                 # one warp lane per Kraus operator
+_WARPS = 8                     # states per block; WARPS in csrc/qv_traj.cu
+
+
+def _bit_permute_indices(perm: torch.Tensor, depth: int) -> torch.Tensor:
+    """Gather indices so new position i holds old qubit perm[i] (MSB first).
+    ``perm`` is (..., depth); the result is (..., 2^depth)."""
+    x = torch.arange(2 ** depth, device=perm.device)
+    out = torch.zeros_like(x)
+    for i in range(depth):
+        bit = (x >> (depth - 1 - i)) & 1
+        out = out | (bit << (depth - 1 - perm[..., i, None]))
+    return out
+
+
+def _simulate_qv_circuit(perms: torch.Tensor, gates: torch.Tensor,
+                         depth: int) -> torch.Tensor:
+    """Ideal output probabilities of one model circuit (vmap-safe).
+
+    perms: (depth, depth) int; gates: (depth, depth//2, 4, 4) complex.
+    """
+    psi = torch.zeros((2,) * depth, dtype=gates.dtype, device=gates.device)
+    psi[(0,) * depth] = 1.0
+    for layer in range(depth):
+        fwd = _bit_permute_indices(perms[layer], depth)
+        psi = psi.reshape(-1)[fwd].reshape((2,) * depth)
+        for j in range(depth // 2):
+            psi = apply_gate_matrix(psi, gates[layer, j], (j, j + 1))
+        inv = torch.argsort(fwd)
+        psi = psi.reshape(-1)[inv].reshape((2,) * depth)
+    return psi.reshape(-1).abs() ** 2
+
+
+def _boundary_maps(perms: torch.Tensor, depth: int) -> torch.Tensor:
+    """Compose per-layer basis permutations into boundary index maps.
+
+    ``fwd_l`` permutes amplitudes so that layer l's gates act at static
+    positions (psi_l[x] = psi_orig[fwd_l[x]]). One map per boundary:
+    h_0 = fwd_0, h_l = inv_{l-1}[fwd_l] (leave layer l-1's basis and enter
+    layer l's in one gather), and h_depth = inv_{depth-1} restores the
+    original basis.
+
+    :param perms: (..., depth, depth) int qubit permutations.
+    :return: (..., depth + 1, 2^depth) int64 index maps.
+    """
+    fwd = _bit_permute_indices(perms, depth)              # (..., depth, 2^d)
+    inv = torch.argsort(fwd, dim=-1)
+    hs = [fwd[..., 0, :]]
+    for l in range(1, depth):
+        hs.append(torch.gather(inv[..., l - 1, :], -1, fwd[..., l, :]))
+    hs.append(inv[..., depth - 1, :])
+    return torch.stack(hs, dim=-2)
+
+
+def _fused_channel_ops(gates: torch.Tensor, kraus: torch.Tensor):
+    """(W, M') for every circuit, layer and slot, each (C, d, d//2, K, 4, 4):
+    W_k = K_k U and M'_k = U^dag K_k^dag K_k U, so that the branch weights
+    p_k = Re tr(M'_k rho) come from the pre-gate pair density and the
+    sampled branch applies one 4x4."""
+    with full_f32_matmul():
+        m_ops = kraus.mH @ kraus                           # (K, 4, 4)
+        u = gates[..., None, :, :]                         # (C, d, s, 1, 4, 4)
+        return kraus @ u, u.mH @ m_ops @ u
+
+
+def _check_depth(depth: int) -> None:
+    if not MIN_DEPTH <= depth <= MAX_DEPTH:
+        raise ValueError(f"the CUDA kernels take depths {MIN_DEPTH} to "
+                         f"{MAX_DEPTH}, got {depth}")
+
+
+def _check_cuda(name: str, x: torch.Tensor, device: torch.device,
+                dtype: torch.dtype, shape) -> None:
+    if not x.is_cuda or x.device != device:
+        raise ValueError(f"{name} must be a CUDA tensor on {device}, got "
+                         f"{x.device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+
+
+def _launch(fn, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err} "
+                           f"({kernels.error_string(err)})")
+
+
+# ----------------------------------------------------------------------
+# Ideal output probabilities
+# ----------------------------------------------------------------------
+
+def ideal_probs_reference(perms: torch.Tensor, gates: torch.Tensor,
+                          depth: int) -> torch.Tensor:
+    """Ideal output probabilities in plain PyTorch: the JAX package's
+    single-circuit :func:`_simulate_qv_circuit` under ``torch.func.vmap``,
+    normalized as the kernel normalizes.
+
+    :param perms: (C, depth, depth) int permutations.
+    :param gates: (C, depth, depth//2, 4, 4) complex Haar gates.
+    :return: (C, 2^depth) probabilities of the gates' real dtype.
+    """
+    with full_f32_matmul():
+        p = torch.func.vmap(functools.partial(_simulate_qv_circuit,
+                                              depth=depth))(perms, gates)
+    return p / p.sum(-1, keepdim=True)
+
+
+def _ideal_kernel_inputs(perms: torch.Tensor, gates: torch.Tensor,
+                         depth: int):
+    """Check the ideal kernel's inputs and lay them out for it: (C, d+1, 2^d)
+    int32 index maps and (C, d, d//2, 2, 16) float32 gate planes."""
+    _check_depth(depth)
+    c, slots = perms.shape[0], depth // 2
+    dev = gates.device
+    _check_cuda("gates", gates, dev, torch.complex64, (c, depth, slots, 4, 4))
+    if perms.device != dev or perms.shape != (c, depth, depth):
+        raise ValueError(f"perms must be (C, depth, depth) on {dev}")
+    hmaps = _boundary_maps(perms, depth).to(torch.int32).contiguous()
+    planes = torch.stack([gates.real, gates.imag], dim=-3).reshape(
+        c, depth, slots, 2, 16).contiguous()
+    return hmaps, planes
+
+
+def _ideal_launch(hmaps: torch.Tensor, planes: torch.Tensor,
+                  depth: int) -> torch.Tensor:
+    """One launch of the ideal kernel on laid-out inputs; counts it."""
+    c = hmaps.shape[0]
+    out = torch.empty((c, 2 ** depth), dtype=torch.float32,
+                      device=hmaps.device)
+    _launch(kernels.load().ideal_probs_launch, hmaps.device,
+            hmaps.data_ptr(), planes.data_ptr(), out.data_ptr(), c, depth)
+    ideal_probs.launches += 1
+    return out
+
+
+def ideal_probs_kernel(perms: torch.Tensor, gates: torch.Tensor,
+                       depth: int) -> torch.Tensor:
+    """Launch the ideal kernel of ``csrc/qv_traj.cu`` on PyTorch's current
+    stream: (C, depth, depth) int permutations and (C, depth, depth//2, 4, 4)
+    complex64 gates on the card -> (C, 2^depth) float32. Adds one to
+    ``ideal_probs.launches`` per launch."""
+    return _ideal_launch(*_ideal_kernel_inputs(perms, gates, depth), depth)
+
+
+def ideal_probs(perms: torch.Tensor, gates: torch.Tensor,
+                depth: int) -> torch.Tensor:
+    """Ideal output probabilities (C, 2^depth) of a batch of model circuits:
+    the CUDA kernel for gates on the card (complex64), the plain version
+    for gates on the CPU. ``ideal_probs.launches`` counts kernel launches."""
+    if gates.is_cuda:
+        return ideal_probs_kernel(perms, gates, depth)
+    if gates.device.type == "cpu":
+        return ideal_probs_reference(perms, gates, depth)
+    raise ValueError(f"unsupported device {gates.device}")
+
+
+ideal_probs.launches = 0
+
+
+# ----------------------------------------------------------------------
+# Kraus-trajectory probabilities
+# ----------------------------------------------------------------------
+
+def traj_probs_reference(perms: torch.Tensor, gates: torch.Tensor,
+                         kraus: torch.Tensor, uniforms: torch.Tensor,
+                         depth: int) -> torch.Tensor:
+    """Per-trajectory noisy output probabilities in plain PyTorch, the
+    kernel's math on a (C, T, 2^depth) state batch: one boundary gather per
+    layer, per slot the pair-reduced density, the branch weights through
+    M'_k, the branch k* = number of cumulative sums strictly below u
+    (clamped to K - 1, where JAX's gather clamps silently) and the apply of
+    W_k*, and one renormalization per layer.
+
+    :param perms: (C, depth, depth) int permutations.
+    :param gates: (C, depth, depth//2, 4, 4) complex Haar gates.
+    :param kraus: (K, 4, 4) complex Kraus stack, applied after every gate.
+    :param uniforms: (C, depth, depth//2, T) branch-selection variates.
+    :return: (C, 2^depth, T) probabilities (each column sums to one).
+    """
+    c, t = perms.shape[0], uniforms.shape[-1]
+    n, n_kraus = 2 ** depth, kraus.shape[0]
+    hmaps = _boundary_maps(perms, depth)
+    w, mp = _fused_channel_ops(gates, kraus)
+    rows = torch.arange(c, device=gates.device)[:, None]
+    psi = torch.zeros((c, t, n), dtype=gates.dtype, device=gates.device)
+    psi[..., 0] = 1.0
+
+    def permute(x, h):
+        return torch.gather(x, 2, h[:, None, :].expand(-1, t, -1))
+
+    with full_f32_matmul():
+        for l in range(depth):
+            psi = permute(psi, hmaps[:, l])
+            for j in range(depth // 2):
+                ps = psi.reshape(c, t, 2 ** j, 4, 2 ** (depth - j - 2))
+                rho = torch.einsum("ctlar,ctlbr->ctab", ps, ps.conj())
+                p = torch.einsum("ckab,ctba->ckt", mp[:, l, j], rho).real
+                p = p.clamp(min=0.0)
+                p = p / p.sum(1, keepdim=True)
+                below = torch.cumsum(p, 1) < uniforms[:, l, j][:, None, :]
+                idx = below.sum(1).clamp(max=n_kraus - 1)          # (C, T)
+                psi = torch.einsum("ctab,ctlbr->ctlar", w[:, l, j][rows, idx],
+                                   ps).reshape(c, t, n)
+            nrm2 = (psi.real ** 2 + psi.imag ** 2).sum(-1, keepdim=True)
+            psi = psi * torch.rsqrt(nrm2.clamp(min=1e-30))
+        psi = permute(psi, hmaps[:, depth])
+    p = psi.real ** 2 + psi.imag ** 2
+    return (p / p.sum(-1, keepdim=True)).transpose(1, 2)
+
+
+def _traj_kernel_inputs(perms: torch.Tensor, gates: torch.Tensor,
+                        kraus: torch.Tensor, uniforms: torch.Tensor,
+                        depth: int):
+    """Check the trajectory kernel's inputs and lay them out for it:
+    (C, d+1, 2^d) int32 index maps, (C, d, 4, d//2 * K * 16) float32 planes
+    (W real and imaginary as [slot][k][ab], M' real and imaginary as
+    [slot][ab][k]) and the contiguous uniforms."""
+    _check_depth(depth)
+    c, slots, t = perms.shape[0], depth // 2, uniforms.shape[-1]
+    n_kraus = kraus.shape[0]
+    dev = gates.device
+    if not 1 <= n_kraus <= MAX_KRAUS:
+        raise ValueError(f"the trajectory kernel takes 1 to {MAX_KRAUS} "
+                         f"Kraus operators, got {n_kraus}")
+    _check_cuda("gates", gates, dev, torch.complex64, (c, depth, slots, 4, 4))
+    _check_cuda("kraus", kraus, dev, torch.complex64, (n_kraus, 4, 4))
+    _check_cuda("uniforms", uniforms, dev, torch.float32, (c, depth, slots, t))
+    if perms.device != dev or perms.shape != (c, depth, depth):
+        raise ValueError(f"perms must be (C, depth, depth) on {dev}")
+    if c * -(-t // _WARPS) >= 2 ** 31:
+        raise ValueError(f"{c} circuits x {t} trajectories exceed the grid")
+    hmaps = _boundary_maps(perms, depth).to(torch.int32).contiguous()
+    w, mp = _fused_channel_ops(gates, kraus)
+    w = w.reshape(c, depth, -1)
+    mt = mp.reshape(c, depth, slots, n_kraus, 16).transpose(-1, -2).reshape(
+        c, depth, -1)
+    planes = torch.stack([w.real, w.imag, mt.real, mt.imag], dim=2).contiguous()
+    return hmaps, planes, uniforms.contiguous()
+
+
+def _traj_launch(hmaps: torch.Tensor, planes: torch.Tensor,
+                 uniforms: torch.Tensor, depth: int,
+                 n_kraus: int) -> torch.Tensor:
+    """One launch of the trajectory kernel on laid-out inputs; counts it."""
+    c, t = hmaps.shape[0], uniforms.shape[-1]
+    out = torch.empty((c, 2 ** depth, t), dtype=torch.float32,
+                      device=hmaps.device)
+    _launch(kernels.load().traj_probs_launch, hmaps.device, hmaps.data_ptr(),
+            planes.data_ptr(), uniforms.data_ptr(), out.data_ptr(), c, depth,
+            n_kraus, t)
+    traj_probs.launches += 1
+    return out
+
+
+def traj_probs_kernel(perms: torch.Tensor, gates: torch.Tensor,
+                      kraus: torch.Tensor, uniforms: torch.Tensor,
+                      depth: int) -> torch.Tensor:
+    """Launch the trajectory kernel of ``csrc/qv_traj.cu`` on PyTorch's
+    current stream. Takes what :func:`traj_probs_reference` takes, with
+    complex64 gates and Kraus operators and float32 uniforms on the card,
+    and returns the (C, 2^depth, T) float32 probabilities. Adds one to
+    ``traj_probs.launches`` per launch."""
+    return _traj_launch(*_traj_kernel_inputs(perms, gates, kraus, uniforms,
+                                             depth), depth, kraus.shape[0])
+
+
+def traj_probs(perms: torch.Tensor, gates: torch.Tensor, kraus: torch.Tensor,
+               uniforms: torch.Tensor, depth: int) -> torch.Tensor:
+    """Per-trajectory noisy output probabilities (C, 2^depth, T): the CUDA
+    kernel for tensors on the card (complex64, float32 uniforms), the plain
+    version for tensors on the CPU. ``traj_probs.launches`` counts kernel
+    launches."""
+    if gates.is_cuda:
+        return traj_probs_kernel(perms, gates, kraus, uniforms, depth)
+    if gates.device.type == "cpu":
+        return traj_probs_reference(perms, gates, kraus, uniforms, depth)
+    raise ValueError(f"unsupported device {gates.device}")
+
+
+traj_probs.launches = 0
+
+
+def traj_flops_per_circuit(depth: int, n_kraus: int = 16,
+                           num_trajectories: int = 1024,
+                           noiseless: bool = False) -> float:
+    """Floating-point operations of one circuit in the CUDA kernels.
+
+    Per trajectory and layer: per slot (depth//2 of them) either a 4x4 gate
+    apply (32 * 2^d, ``noiseless``) or the fused channel step (the hermitian
+    pair-reduced density 16 * 2^d, the branch weights 2K * 16, the
+    selection ~3K and one 4x4 apply of the sampled W_k 32 * 2^d), and in the
+    noisy kernel one renormalization (~7 * 2^d). Plus the final output
+    normalization (~4 * 2^d). Unlike the JAX package's count, the
+    permutations cost nothing (they are gathers here, not one-hot matmuls),
+    the sampled operator is picked by index, not materialized by a (K, 16)
+    product, and each weight Re tr(M'_k rho) of two hermitian 4x4 matrices
+    takes its 4 diagonal and 6 upper terms, 16 fused multiply-adds, not 16
+    complex products.
+    """
+    d = float(2 ** depth)
+    slots = depth // 2
+    if noiseless:
+        per_slot, renorm = 32 * d, 0.0
+    else:
+        per_slot = 16 * d + 2 * n_kraus * 16 + 3 * n_kraus + 32 * d
+        renorm = 7 * d
+    return num_trajectories * (depth * (slots * per_slot + renorm) + 4 * d)

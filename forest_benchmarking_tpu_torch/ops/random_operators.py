@@ -1,7 +1,8 @@
 """Random quantum processes drawn with an explicit ``torch.Generator``.
 
 Port of ``forest_benchmarking_tpu/ops/random_operators.py`` (subset:
-``ginibre_matrix_complex`` and ``rand_map_with_BCSZ_dist``). Samples are
+``ginibre_matrix_complex``, ``haar_rand_unitary`` and
+``rand_map_with_BCSZ_dist``). Samples are
 drawn on the generator's device. torch and ``jax.random`` streams differ,
 so the two packages agree in distribution, not draw for draw; the
 deterministic BCSZ transform (:func:`bcsz_choi_from_ginibre`) agrees
@@ -16,8 +17,8 @@ import torch
 from forest_benchmarking_tpu_torch.ops.calculational import (
     dag, kron, partial_trace)
 
-__all__ = ["ginibre_matrix_complex", "rand_map_with_BCSZ_dist",
-           "bcsz_choi_from_ginibre"]
+__all__ = ["ginibre_matrix_complex", "haar_rand_unitary",
+           "rand_map_with_BCSZ_dist", "bcsz_choi_from_ginibre"]
 
 
 def ginibre_matrix_complex(generator: torch.Generator, dim: int, k: int,
@@ -32,6 +33,26 @@ def ginibre_matrix_complex(generator: torch.Generator, dim: int, k: int,
     re = torch.randn(shape, **kw)
     im = torch.randn(shape, **kw)
     return torch.complex(re, im)
+
+
+def haar_rand_unitary(generator: torch.Generator, dim: int,
+                      batch: Tuple[int, ...] = (),
+                      dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """Draw a (batched) Haar-random unitary [MEZ]: the Q factor of the QR
+    decomposition of a Ginibre matrix, phase-fixed so that R has a positive
+    real diagonal. That Q is unique, and modified Gram-Schmidt over the
+    columns, run twice for orthogonality in f32, computes it directly, in a
+    few dozen batched operations: ``torch.linalg.qr`` on the card launches
+    kernels per matrix of the batch."""
+    z = ginibre_matrix_complex(generator, dim, dim, batch, dtype)
+    cols = []
+    for k in range(dim):
+        v = z[..., :, k]
+        for _ in range(2):
+            for q in cols:
+                v = v - (q.conj() * v).sum(-1, keepdim=True) * q
+        cols.append(v / torch.linalg.vector_norm(v, dim=-1, keepdim=True))
+    return torch.stack(cols, dim=-1)
 
 
 def bcsz_choi_from_ginibre(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -3,8 +3,9 @@
 Port of the process path of ``forest_benchmarking_tpu/tomography.py``:
 
 - the host-side helpers that build the PGDB A-matrix rows from the Pauli
-  process-tomography settings (pure numpy, copied here because the JAX module
-  imports jax);
+  process-tomography settings (pure numpy; the six +-X/Y/Z eigenstate
+  densities come from the same rotation matrices, applied in the same order,
+  as ``observable_estimation._one_q_state_prep`` in the JAX package);
 - :func:`pgdb_process_estimate_batched` with the fused-solver route
   (``method="apg", cp_method="pallas"``), which runs
   :func:`~forest_benchmarking_tpu_torch.ops.lanes_apg.apg_fused`.
@@ -12,62 +13,71 @@ Port of the process path of ``forest_benchmarking_tpu/tomography.py``:
 The per-problem ``while``-loop solvers (``method="pgdb"``/``"apg"`` with
 ``cp_method="eigh"``/``"ns"``) come with ROADMAP.md queue 1, item 5.
 
-Conventions: column-stacking vec; the first qubit in ``qubits`` is the
-left-most tensor factor.
+Conventions: column-stacking vec; the first qubit is the left-most tensor
+factor.
 """
 from __future__ import annotations
 
 import functools
 import itertools
-from operator import mul
+from math import pi
 from typing import Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from forest_benchmarking_tpu.observable_estimation import (
-    ExperimentSetting, TensorProductState, plusX, minusX, plusY, minusY,
-    plusZ, minusZ, _one_q_state_prep)
-from forest_benchmarking_tpu.paulis import all_traceless_pauli_terms
+from forest_benchmarking_tpu_torch.utils import all_traceless_pauli_strings
 
 __all__ = ["state_to_density", "pgdb_a_row_pair",
            "pgdb_process_estimate_batched"]
 
+# The Pauli-eigenstate inputs of process tomography, as (Pauli, index) with
+# index 0 the +1 eigenstate: plusX, minusX, plusY, minusY, plusZ, minusZ.
+_EIGENSTATES: Tuple[Tuple[str, int], ...] = (
+    ("X", 0), ("X", 1), ("Y", 0), ("Y", 1), ("Z", 0), ("Z", 1))
 
-def _pauli_process_tomo_settings(qubits: Sequence[int]) -> Iterator[ExperimentSetting]:
-    """+-XYZ eigenstate inputs x all non-identity Pauli observables."""
-    for states in itertools.product([plusX, minusX, plusY, minusY, plusZ, minusZ],
-                                    repeat=len(qubits)):
-        i_state = functools.reduce(mul, (state(q) for state, q in zip(states, qubits)),
-                                   TensorProductState())
-        for obs in all_traceless_pauli_terms(qubits):
-            yield ExperimentSetting(in_state=i_state, observable=obs)
+
+def _rx(theta: float) -> np.ndarray:
+    c, s = np.cos(theta / 2), np.sin(theta / 2)
+    return np.array([[c, -1j * s], [-1j * s, c]], dtype=complex)
+
+
+def _ry(theta: float) -> np.ndarray:
+    c, s = np.cos(theta / 2), np.sin(theta / 2)
+    return np.array([[c, -s], [s, c]], dtype=complex)
+
+
+# preparation rotations of each eigenstate from |0>, applied in order
+_PREPS = {("X", 0): (_ry(pi / 2),), ("X", 1): (_ry(-pi / 2),),
+          ("Y", 0): (_rx(-pi / 2),), ("Y", 1): (_rx(pi / 2),),
+          ("Z", 0): (), ("Z", 1): (_rx(pi),)}
+
+
+def _pauli_process_tomo_settings(n_qubits: int
+                                 ) -> Iterator[Tuple[Tuple[Tuple[str, int], ...], str]]:
+    """(input eigenstates, observable) pairs: +-XYZ eigenstate inputs on
+    every qubit x all non-identity Pauli observables, in the JAX package's
+    order."""
+    for states in itertools.product(_EIGENSTATES, repeat=n_qubits):
+        for obs in all_traceless_pauli_strings(n_qubits):
+            yield states, obs
 
 
 @functools.lru_cache(maxsize=None)
 def _oneq_state_density(label: str, index: int) -> np.ndarray:
-    """Density matrix of a named 1q state, from its own prep circuit."""
-    from forest_benchmarking_tpu.observable_estimation import _OneQState
-    prep = _one_q_state_prep(_OneQState(label, index, 0))
+    """Density matrix of a Pauli eigenstate, from its preparation rotations."""
     psi = np.array([1.0, 0.0], dtype=complex)
-    for gate in prep.gates:
-        psi = gate.get_matrix() @ psi
+    for gate in _PREPS[(label, index)]:
+        psi = gate @ psi
     return np.outer(psi, psi.conj())
 
 
-def state_to_density(tps: TensorProductState, qubits: Sequence[int]) -> np.ndarray:
-    """Dense density matrix of a TensorProductState on the given qubit order.
-
-    Qubits not named in the state default to |0><0|.
-    """
-    named = {s.qubit: s for s in tps.states}
+def state_to_density(states: Sequence[Tuple[str, int]]) -> np.ndarray:
+    """Dense density matrix of a tensor product of Pauli eigenstates, given
+    as (Pauli, index) per qubit, first qubit = left-most factor."""
     rho = np.array([[1.0 + 0j]])
-    for q in qubits:
-        if q in named:
-            s = named[q]
-            rho = np.kron(rho, _oneq_state_density(s.label, s.index))
-        else:
-            rho = np.kron(rho, np.array([[1, 0], [0, 0]], dtype=complex))
+    for label, index in states:
+        rho = np.kron(rho, _oneq_state_density(label, index))
     return rho
 
 

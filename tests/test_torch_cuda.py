@@ -10,9 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from forest_benchmarking_tpu_torch import quantum_volume
 from forest_benchmarking_tpu_torch.benchmarks import (
     inputs_from_numpy, process_tomo_A_matrix, synth_process_datasets)
-from forest_benchmarking_tpu_torch.ops import lanes_apg
+from forest_benchmarking_tpu_torch.ops import lanes_apg, pallas_traj
+from forest_benchmarking_tpu_torch.ops.random_operators import (
+    haar_rand_unitary)
+from forest_benchmarking_tpu_torch.sim.noise import depolarizing_kraus_map
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +84,58 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, cuda):
                             **lanes_apg.HEADLINE_TUNED_2Q)
     with pytest.raises(ValueError, match="at most"):
         lanes_apg.apg_fused(in32.a, n, 4, phases=((1, 1, 1),) * 9)
+
+
+def qv_case(cuda, depth, circuits=16, n_traj=256):
+    """Circuits, 2% two-qubit depolarizing Kraus stack and uniforms on the
+    card, drawn from a seeded generator."""
+    gen = torch.Generator(device=cuda).manual_seed(depth)
+    perms = quantum_volume._sample_perms(gen, circuits, depth)
+    gates = haar_rand_unitary(gen, 4, batch=(circuits, depth, depth // 2),
+                              dtype=torch.float32)
+    ks = depolarizing_kraus_map(0.02)
+    kraus = torch.tensor(np.stack([np.kron(a, b) for a in ks for b in ks]),
+                         dtype=torch.complex64, device=cuda)
+    uniforms = torch.rand((circuits, depth, depth // 2, n_traj),
+                          generator=gen, device=cuda)
+    return perms, gates, kraus, uniforms
+
+
+@pytest.mark.parametrize("depth", [7, 8])
+def test_ideal_kernel_against_plain_version(cuda, depth):
+    """Within 2e-6 of the plain f32 version (the JAX package's bar for its
+    Pallas kernel) and 1e-5 of the plain f64 version; one launch."""
+    perms, gates, _, _ = qv_case(cuda, depth)
+    before = pallas_traj.ideal_probs.launches
+    kern = pallas_traj.ideal_probs(perms, gates, depth)
+    torch.cuda.synchronize()
+    assert pallas_traj.ideal_probs.launches == before + 1
+    plain32 = pallas_traj.ideal_probs_reference(perms, gates, depth)
+    plain64 = pallas_traj.ideal_probs_reference(perms, gates.to(
+        torch.complex128), depth)
+    assert (kern - plain32).abs().max().item() <= 2e-6
+    assert (kern.double() - plain64).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("depth,n_traj", [(7, 256), (8, 256), (8, 500)])
+def test_traj_kernel_against_plain_version(cuda, depth, n_traj):
+    """On the same uniforms, more than 97% of trajectories within 1e-4 of
+    the plain f32 version (the rest flip a branch where u is within f32
+    round-off of a cumulative sum), every column normalized to 1e-5; one
+    launch. T = 500 leaves the last block of 8 trajectories half full."""
+    perms, gates, kraus, uniforms = qv_case(cuda, depth, n_traj=n_traj)
+    before = pallas_traj.traj_probs.launches
+    kern = pallas_traj.traj_probs(perms, gates, kraus, uniforms, depth)
+    torch.cuda.synchronize()
+    assert pallas_traj.traj_probs.launches == before + 1
+    plain = pallas_traj.traj_probs_reference(perms, gates, kraus, uniforms,
+                                             depth)
+    col_diff = (kern - plain).abs().amax(dim=1)
+    assert (col_diff < 1e-4).float().mean().item() > 0.97
+    assert (kern.sum(1) - 1).abs().max().item() < 1e-5
+
+
+def test_qv_entry_point_rejects_a_generator_elsewhere(cuda):
+    with pytest.raises(ValueError, match="generator"):
+        quantum_volume.sample_heavy_outputs_batched(
+            torch.Generator(), 4, 2, 10, device=cuda)

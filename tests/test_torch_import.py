@@ -1,7 +1,8 @@
-"""The PyTorch port imports without JAX or a kernel toolchain, and carries the
-JAX package's schedule constants."""
+"""The PyTorch port imports without JAX, the JAX package or a kernel
+toolchain, and carries the JAX package's schedule constants."""
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -32,6 +33,8 @@ new = sorted(set(sys.modules) - before)
 print(json.dumps({
     "names": names,
     "jax": [m for m in new if m == "jax" or m.startswith("jax.")],
+    "jax_package": [m for m in sys.modules if m == "forest_benchmarking_tpu"
+                    or m.startswith("forest_benchmarking_tpu.")],
     "triton": "triton" in sys.modules,
     "cpp_extension": "torch.utils.cpp_extension" in sys.modules,
     "loaded": kernels.load.cache_info().currsize,
@@ -41,7 +44,7 @@ print(json.dumps({
 """
 
 
-def test_port_imports_without_jax_or_toolchain():
+def test_port_imports_without_jax_package_or_toolchain():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
@@ -50,14 +53,25 @@ def test_port_imports_without_jax_or_toolchain():
                          check=True)
     info = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("benchmarks", "tomography", "kernels", "ops.calculational",
-                 "ops.lanes_apg", "ops.random_operators",
-                 "ops.superoperator_transformations"):
+                 "ops.lanes_apg", "ops.pallas_traj", "ops.random_operators",
+                 "ops.superoperator_transformations", "quantum_volume",
+                 "sim.noise", "sim.statevector", "utils"):
         assert f"forest_benchmarking_tpu_torch.{name}" in info["names"]
     assert info["jax"] == []
+    assert info["jax_package"] == []
     assert not info["triton"]
     assert not info["cpp_extension"]
     assert info["loaded"] == 0
     assert info["build_unchanged"]
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        src = f.read()
+    imports = re.findall(r"^\s*(?:from|import)\s+([\w.]+)", src, re.M)
+    assert imports and all(
+        m.split(".")[0] not in ("jax", "forest_benchmarking_tpu")
+        for m in imports), imports
 
 
 def test_schedule_constants_equal_jax():

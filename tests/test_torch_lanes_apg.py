@@ -160,3 +160,15 @@ def test_cuda_source_tables_match_python():
     fields = [f[0] for f in kernels.ApgSchedule._fields_]
     struct = src.split("struct ApgSchedule {", 1)[1].split("};", 1)[0]
     assert re.findall(r"(\w+)(?:\[APG_MAX_PHASES\])?[,;]", struct) == fields
+
+
+@pytest.mark.parametrize("schedule,passes", [("HEADLINE_TUNED_2Q", 16),
+                                             ("PARITY_TUNED_2Q", 133)])
+def test_flop_count_passes_over_a(schedule, passes):
+    """The kernel reads A once for the first cost and three times per outer
+    step; each pass is 4 R n^2 operations."""
+    cfg = getattr(lanes_apg, schedule)
+    rows = 1080
+    a_part = (lanes_apg.apg_fused_flops_per_solve(rows, **cfg)
+              - lanes_apg.apg_fused_flops_per_solve(0, **cfg))
+    assert a_part == passes * 4 * rows * 256

@@ -12,7 +12,8 @@ from forest_benchmarking_tpu.ops import superoperator_transformations as jsup
 from forest_benchmarking_tpu_torch.ops import calculational as tcalc
 from forest_benchmarking_tpu_torch.ops import superoperator_transformations as tsup
 from forest_benchmarking_tpu_torch.ops.random_operators import (
-    bcsz_choi_from_ginibre, ginibre_matrix_complex, rand_map_with_BCSZ_dist)
+    bcsz_choi_from_ginibre, ginibre_matrix_complex, haar_rand_unitary,
+    rand_map_with_BCSZ_dist)
 
 torch.set_num_threads(1)
 
@@ -99,3 +100,31 @@ def test_ginibre_moments():
     assert abs(g.mean()) < 0.02
     assert abs(np.var(g.real) - 1.0) < 0.05
     assert abs(np.var(g.imag) - 1.0) < 0.05
+
+
+def test_haar_unitary_is_jax_phase_fixed_qr():
+    """The Gram-Schmidt Q equals the JAX package's QR with the phase fix on
+    the same Ginibre draw (the generator is reseeded to replay it); the
+    bar is round-off amplified by the draws' condition numbers."""
+    u = haar_rand_unitary(torch.Generator().manual_seed(3), 4, batch=(256,))
+    z = ginibre_matrix_complex(torch.Generator().manual_seed(3), 4, 4, (256,))
+    q, r = jnp.linalg.qr(jnp.asarray(z.numpy()))
+    diag = jnp.diagonal(r, axis1=-2, axis2=-1)
+    want = np.asarray(q * (diag / jnp.abs(diag))[..., None, :])
+    np.testing.assert_allclose(u.numpy(), want, atol=1e-11)
+    eye = np.eye(4)
+    np.testing.assert_allclose((u.mH @ u).numpy(), np.broadcast_to(
+        eye, (256, 4, 4)), atol=1e-14)
+
+
+def test_haar_unitary_moments_f32():
+    """Haar moments on U(4): E|u_ij|^2 = 1/4, E|u_ij|^4 = 2/(4*5); unitary
+    to f32 round-off."""
+    u = haar_rand_unitary(torch.Generator().manual_seed(4), 4, batch=(20000,),
+                          dtype=torch.float32)
+    assert u.dtype == torch.complex64
+    a2 = (u.abs() ** 2).double()
+    assert abs(a2.mean().item() - 0.25) < 2e-3
+    assert abs((a2 ** 2).mean().item() - 0.1) < 2e-3
+    err = (u.mH @ u - torch.eye(4, dtype=u.dtype)).abs().max().item()
+    assert err < 2e-6
