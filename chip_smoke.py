@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke check of the PyTorch port's main paths: batched 2Q process
-tomography (BASELINE config 2) and batched quantum volume (config 5).
+tomography (BASELINE config 2), batched quantum volume (config 5), batched
+1Q process tomography, the per-problem process-MLE routes and the Jacobi CP
+projection.
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
@@ -55,6 +57,48 @@ Phases, each of which must pass:
    ``torch.profiler`` pass over one main-path call each, ideal and noisy:
    kernel launches, device busy time, the top kernels and host operations.
 
+9. the dim = 2 (one-qubit) fused kernel against its plain f32 and f64
+   versions at B = 256 (here) and B = 16384 (phase 10), default schedule,
+   on the same counts and warm start. Bar: at the median and the 90th
+   percentile of the per-problem max deviation from f64, the kernel's is
+   at most 2 x the plain f32 one's + 1e-5; the 99th percentile of the
+   per-problem TP violation is under 1e-5, the largest under 1e-3, and at
+   most 2 x + 2 as many problems exceed 1e-5 as in the plain f32 solve.
+   Not the maxima, as at dim = 4: the default
+   schedule amplifies f32 round-off on a few problems in a thousand (the
+   plain f32 version on the host CPU and on the card differ as much on the
+   same inputs, printed here), and leaves a few in ten thousand far from
+   the physical set (counted in phase 10), where f32 cannot hold TP to
+   1e-5 (the plain f32 version neither); the maxima are printed;
+10. the one-qubit main path: A from ``process_tomo_A_matrix(1)``,
+   B = 16384 problems, 2000 shots, through
+   ``tomography.pgdb_process_estimate_batched(dim=2, method="apg",
+   cp_method="pallas")``; the launch counter, zeroed just before, must
+   move, outputs must be finite, the mean relative Frobenius error within
+   2% of the plain f64 solve's on the same counts, and the TP violation
+   within phase 9's bar. Then CUDA-event timings (one warm-up, median of
+   3) of the kernel alone and of the plain f32 version, whose outputs make
+   phase 9's B = 16384 check;
+11. the per-problem routes on the card, float32: ``method="pgdb"`` with the
+   default arguments and the warm-start APG route (``method="apg",
+   warm_start=True, loop_dyk_iters=1``), at dim = 2 and dim = 4 on the
+   first ``ROUTE_BATCH`` problems of the main paths. Each prints its host
+   clock and ``torch.linalg.eigh`` calls, the port kernels' launch counters
+   (no kernel runs there), the device kernel launches, busy time,
+   synchronizations and top kernels from ``torch.profiler`` over a second
+   run, and the deviation from the fused kernel's estimate
+   (median and maximum, beside the JAX package's 1e-3 for PGDB against
+   APG). Bar: finite, TP violation under 1e-5, and a mean relative
+   Frobenius error against the truth at most 5% above the fused kernel's;
+12. the Jacobi CP projection ``ops.pallas_eigh.cp_project_pallas(h,
+   sweeps=6)`` on the linear-inversion estimates of the config-2 main path
+   (B = 256, then the main path at B = 16384 with the launch counter zeroed
+   just before) and on Gaussian Hermitian matrices (B = 256): within 1e-4
+   of ``proj_choi_to_completely_positive`` in float64;
+13. CUDA-event timings at B = 16384 of the CP kernel, its plain version and
+   the library route ``proj_choi_to_completely_positive`` (``torch.linalg.eigh``),
+   with the bounds of both new kernels and their shares.
+
 The second-to-last line is the per-kernel JSON record: ``launches`` from
 the main paths; ``ms``/``plain_ms``: the kernel alone and the plain version
 at the main path's size (APG: headline schedule); ``bound_ms``: the larger
@@ -65,7 +109,11 @@ once, over 3.35 TB/s (not the layouts a wrapper derives from them);
 check; ideal, the largest |kernel - plain f32| at C = 1600; trajectory, the
 same over the trajectories whose branch choices agree (column deviation
 under 1e-4), with ``agree_share``, the share of trajectories that do, and
-``max_abs_err_all``, the largest deviation over all of them. The last line
+``max_abs_err_all``, the largest deviation over all of them; one-qubit APG,
+the largest |kernel - plain f64| of the B = 16384 check, with the median
+and 99th percentile over problems; CP projection, the largest
+|kernel - eigh f64| at B = 16384, with ``library_ms`` the time of
+``proj_choi_to_completely_positive``. The last line
 is ``{"ok": true, ...}``. Exits non-zero,
 printing no result, if CUDA is unavailable or any phase fails.
 """
@@ -92,6 +140,8 @@ QV_TRAJ = 1000
 QV_DEPOL = 0.02
 QV_CHECK_C = 16        # circuits of the phase-6 check
 QV_CHECKS = ((QV_DEPTH, 256), (QV_DEPTH - 1, 256), (QV_DEPTH, 500))
+ROUTE_BATCH = 256      # problems of each per-problem route in phase 11
+CP_SWEEPS = 6
 PEAK_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 
@@ -105,10 +155,16 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def tp_violation(est: torch.Tensor) -> float:
-    """max |Tr_out(E) - I| over a (B, 16, 16) batch of Choi matrices."""
-    pt = torch.diagonal(est.reshape(-1, 4, 4, 4, 4), dim1=2, dim2=4).sum(-1)
-    return (pt - torch.eye(4, device=est.device)).abs().max().item()
+def tp_per_problem(est: torch.Tensor, dim: int) -> torch.Tensor:
+    """(B,) max |Tr_out(E) - I| of each Choi matrix of the batch."""
+    pt = torch.diagonal(est.reshape(-1, dim, dim, dim, dim), dim1=2,
+                        dim2=4).sum(-1)
+    return (pt - torch.eye(dim, device=est.device)).abs().amax(dim=(1, 2))
+
+
+def tp_violation(est: torch.Tensor, dim: int = 4) -> float:
+    """max |Tr_out(E) - I| over a (B, dim^2, dim^2) batch of Choi matrices."""
+    return tp_per_problem(est, dim).max().item()
 
 
 def rel_frobenius(est: torch.Tensor, truth: torch.Tensor) -> torch.Tensor:
@@ -160,6 +216,58 @@ def against_plain(lanes_apg, name, kern, in32, in64, n, cfg, plain32=None):
     return dev_k
 
 
+QUANTILES = (0.5, 0.9, 0.99)
+
+
+def check_tp_1q(name, est, plain32):
+    """The TP bar at dim = 2: the 99th percentile under 1e-5, the largest
+    under 1e-3, and at most 2 x + 2 as many problems over 1e-5 as the plain
+    f32 solve has (which problems diverge differs between the two)."""
+    tk, tp = tp_per_problem(est, 2), tp_per_problem(plain32, 2)
+    q99 = torch.quantile(tk.double(), 0.99).item()
+    over_k, over_p = int((tk > 1e-5).sum()), int((tp > 1e-5).sum())
+    print(f"check {name}: TP violation q99 {q99:.3e} max "
+          f"{tk.max().item():.3e} (plain32 max {tp.max().item():.3e}), "
+          f"{over_k} of {tk.numel()} problems over 1e-5 (plain32 {over_p})")
+    check(q99 < 1e-5, f"{name}: TP violation q99 {q99:.3e}")
+    check(tk.max().item() < 1e-3, f"{name}: TP violation {tk.max().item()}")
+    check(over_k <= 2 * over_p + 2, f"{name}: {over_k} problems over 1e-5 "
+          f"against the plain f32 solve's {over_p}")
+
+
+def against_plain_1q(kern, plain32, plain64):
+    """Hold the dim = 2 kernel's (B, 4, 4) result against the plain f32 and
+    f64 solves of the same counts and warm start, at the median and 90th
+    percentile of the per-problem max deviation from f64, and its TP
+    violation by :func:`check_tp_1q`; returns (max |kernel - plain f64|,
+    its median, its 99th percentile)."""
+    def per_problem(x):
+        return (x.to(plain64.dtype) - plain64).abs().amax(dim=(1, 2))
+
+    dk, dp = per_problem(kern), per_problem(plain32)
+    q = torch.tensor(QUANTILES, dtype=dk.dtype, device=dk.device)
+    qk, qp = torch.quantile(dk, q).tolist(), torch.quantile(dp, q).tolist()
+    print(f"check apg_fused_1q: B={kern.shape[0]} kernel-f64 q50/q90/q99/max "
+          + "/".join(f"{x:.3e}" for x in (*qk, dk.max().item()))
+          + " plain32-f64 "
+          + "/".join(f"{x:.3e}" for x in (*qp, dp.max().item())))
+    check(bool(torch.isfinite(kern).all()), "apg_fused_1q: non-finite output")
+    for level, k, p in list(zip(QUANTILES, qk, qp))[:2]:
+        check(k <= 2 * p + 1e-5, f"apg_fused_1q: kernel deviates from f64 by "
+              f"{k:.3e} > 2 x {p:.3e} + 1e-5 at quantile {level}")
+    check_tp_1q("apg_fused_1q", kern, plain32)
+    return dk.max().item(), qk[0], qk[2]
+
+
+def plain_1q(lanes_apg, in_1q, n, dtype):
+    """The plain dim = 2 solve of counts ``n`` (default schedule) on the
+    card in ``dtype``, from its own warm start."""
+    inp = in_1q[dtype]
+    rho0 = lanes_apg.linear_inversion_start(inp.a_pinv, n.to(dtype), 2)
+    return torch.complex(*lanes_apg.apg_fused_reference(
+        inp.ar, inp.ai, n.to(dtype), *rho0, dim=2))
+
+
 def bound_ms(flops: float, n_bytes: float):
     """(least time in ms, what bounds it) at the card's published peaks."""
     t_ops, t_bytes = flops / PEAK_FLOPS, n_bytes / PEAK_BYTES
@@ -169,6 +277,23 @@ def bound_ms(flops: float, n_bytes: float):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@contextlib.contextmanager
+def counting_eigh():
+    """Count the calls of ``torch.linalg.eigh`` in the block; yields a
+    one-element list that holds the count."""
+    count, real = [0], torch.linalg.eigh
+
+    def eigh(*args, **kwargs):
+        count[0] += 1
+        return real(*args, **kwargs)
+
+    torch.linalg.eigh = eigh
+    try:
+        yield count
+    finally:
+        torch.linalg.eigh = real
 
 
 @contextlib.contextmanager
@@ -207,6 +332,7 @@ def traj_agreement(kern: torch.Tensor, plain: torch.Tensor):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -215,7 +341,8 @@ def main() -> int:
         kernels, quantum_volume, tomography)
     from forest_benchmarking_tpu_torch.benchmarks import (
         inputs_from_numpy, process_tomo_A_matrix, synth_process_datasets)
-    from forest_benchmarking_tpu_torch.ops import lanes_apg, pallas_traj
+    from forest_benchmarking_tpu_torch.ops import (
+        lanes_apg, pallas_eigh, pallas_traj, project_superoperators)
     from forest_benchmarking_tpu_torch.ops.random_operators import (
         haar_rand_unitary)
     from forest_benchmarking_tpu_torch.sim.noise import depolarizing_kraus_map
@@ -490,19 +617,206 @@ def main() -> int:
             print(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms "
                   f"x{e.count:<6d} {e.key[:64]}")
 
-    def record(name, source, replaces, launch_count, err, ms_k, ms_p, bound):
+    # 9. the one-qubit kernel against its plain versions at B = 256
+    a1_np = process_tomo_A_matrix(1)
+    in_1q = {dt: inputs_from_numpy(a1_np, np.zeros((1, a1_np.shape[0])),
+                                   device=dev, dtype=dt)
+             for dt in (torch.float32, torch.float64)}
+    a1 = in_1q[torch.float32].a
+    n1_chk, _ = synth_process_datasets(gen, a1, 2, CHECK_BATCH, SHOTS)
+    kern = lanes_apg.apg_fused(a1, n1_chk, 2,
+                               a_pinv=in_1q[torch.float32].a_pinv)
+    plain32 = plain_1q(lanes_apg, in_1q, n1_chk, torch.float32)
+    against_plain_1q(kern, plain32,
+                     plain_1q(lanes_apg, in_1q, n1_chk, torch.float64))
+    # the same plain f32 solve on the host CPU: how far round-off alone
+    # moves the result
+    inp = in_1q[torch.float32]
+    start = lanes_apg.linear_inversion_start(inp.a_pinv, n1_chk, 2)
+    host = torch.complex(*lanes_apg.apg_fused_reference(
+        inp.ar.cpu(), inp.ai.cpu(), n1_chk.cpu(), *(x.cpu() for x in start),
+        dim=2)).to(dev)
+    spread = (host - plain32).abs().amax(dim=(1, 2)).double()
+    q = torch.tensor(QUANTILES, dtype=spread.dtype, device=dev)
+    print("plain32 on the host CPU against plain32 on the card: q50/q90/q99/"
+          "max " + "/".join(f"{x:.3e}" for x in (
+              *torch.quantile(spread, q).tolist(), spread.max().item())))
+
+    # 10. the one-qubit main path at full size, then its timing
+    n1, chois1 = synth_process_datasets(gen, a1, 2, BATCH, SHOTS)
+    torch.cuda.synchronize()
+    lanes_apg.apg_fused.launches = 0
+    est1 = tomography.pgdb_process_estimate_batched(
+        a1, n1, dim=2, method="apg", cp_method="pallas")
+    torch.cuda.synchronize()
+    launches_1q = lanes_apg.apg_fused.launches
+    plain64_1q = plain_1q(lanes_apg, in_1q, n1, torch.float64)
+    err1 = rel_frobenius(est1, chois1).mean().item()
+    err1_64 = rel_frobenius(plain64_1q,
+                            chois1.to(plain64_1q.dtype)).mean().item()
+    print(f"main path 1Q: B={BATCH} shots={SHOTS} launches={launches_1q} "
+          f"mean rel Frobenius err={err1:.5f} (plain f64 {err1_64:.5f}, "
+          f"ratio {err1 / err1_64:.4f})")
+    check(launches_1q > 0, "1Q: the kernel was not launched")
+    check(est1.shape == (BATCH, 4, 4), f"1Q: shape {est1.shape}")
+    check(bool(torch.isfinite(est1).all()), "1Q: non-finite output")
+    check(abs(err1 / err1_64 - 1) <= 0.02,
+          f"1Q: mean relative Frobenius error {err1} against {err1_64}")
+    in32_1q = in_1q[torch.float32]
+    rho0_1q = lanes_apg.linear_inversion_start(in32_1q.a_pinv, n1, 2)
+    ms_k1, kern1 = cuda_ms(lambda: lanes_apg.apg_fused_kernel(
+        in32_1q.ar, in32_1q.ai, n1, *rho0_1q, dim=2))
+    ms_p1, plain1 = cuda_ms(lambda: lanes_apg.apg_fused_reference(
+        in32_1q.ar, in32_1q.ai, n1, *rho0_1q, dim=2))
+    print(f"timing apg_fused_1q: B={BATCH} kernel {ms_k1:.3f} ms "
+          f"({BATCH / ms_k1 * 1e3:.0f} solves/s), plain {ms_p1:.3f} ms "
+          f"({BATCH / ms_p1 * 1e3:.0f} solves/s) on {card}")
+    plain1 = torch.complex(*plain1)
+    # a 1Q CPTP Choi matrix has trace 2, so no entry above 2 in magnitude
+    print("problems with an entry above 2 in magnitude (not converged): "
+          + ", ".join(f"{name} {int((x.abs().amax(dim=(1, 2)) > 2).sum())}"
+                      for name, x in (("main path", est1),
+                                      ("kernel", torch.complex(*kern1)),
+                                      ("plain f32", plain1),
+                                      ("plain f64", plain64_1q))))
+    check_tp_1q("main path 1Q", est1, plain1)
+    err_1q = against_plain_1q(torch.complex(*kern1), plain1, plain64_1q)
+    del plain64_1q, kern1, plain1
+
+    # 11. the per-problem routes on the card
+    routes = (("pgdb", {}),
+              ("apg-warm", dict(method="apg", warm_start=True,
+                                loop_dyk_iters=1, return_iters=True)))
+    for dim, a_r, n_r, truth, fused in (
+            (2, a1, n1, chois1, est1),
+            (4, a, n, chois, results["parity"][1])):
+        n_r, truth, fused = (x[:ROUTE_BATCH] for x in (n_r, truth, fused))
+        err_fused = rel_frobenius(fused, truth).mean().item()
+        for name, kw in routes:
+            lanes_apg.apg_fused.launches = 0
+            pallas_eigh.cp_project_pallas.launches = 0
+            with counting_eigh() as eighs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = tomography.pgdb_process_estimate_batched(
+                    a_r, n_r, dim=dim, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            ours = (lanes_apg.apg_fused.launches,
+                    pallas_eigh.cp_project_pallas.launches)
+            est, iters = out if kw.get("return_iters") else (out, None)
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                tomography.pgdb_process_estimate_batched(a_r, n_r, dim=dim,
+                                                         **kw)
+                torch.cuda.synchronize()
+            ev = prof.key_averages()
+            gpu = sorted((e for e in ev
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.self_device_time_total, reverse=True)
+            busy = sum(e.self_device_time_total for e in gpu) / 1e3
+            syncs = sum(e.count for e in ev if "Synchronize" in e.key)
+            dev_f = (est - fused).abs().amax(dim=(1, 2))
+            err = rel_frobenius(est, truth).mean().item()
+            tp = tp_violation(est, dim)
+            print(f"route {name} dim={dim}: B={ROUTE_BATCH} host clock "
+                  f"{wall:.3f} s, {eighs[0]} eigh calls, port kernel launches "
+                  f"apg/cp={ours[0]}/{ours[1]}; profiled "
+                  f"({time.perf_counter() - t0:.1f} s): "
+                  f"{sum(e.count for e in gpu)} device launches, device busy "
+                  f"{busy:.3f} ms, {syncs} stream/device synchronizations"
+                  + (f"; iterations max {iters.max().item()} mean "
+                     f"{iters.float().mean().item():.1f}"
+                     if iters is not None else ""))
+            for e in gpu[:3]:
+                print(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
+                      f"x{e.count:<7d} {e.key[:64]}")
+            print(f"route {name} dim={dim}: deviation from the fused kernel "
+                  f"median {dev_f.median().item():.3e} max "
+                  f"{dev_f.max().item():.3e} (JAX PGDB-vs-APG bar 1e-3); "
+                  f"mean rel Frobenius err {err:.5f} (fused {err_fused:.5f}) "
+                  f"TP violation {tp:.3e}")
+            check(bool(torch.isfinite(est).all()),
+                  f"route {name} dim={dim}: non-finite output")
+            check(tp < 1e-5, f"route {name} dim={dim}: TP violation {tp:.3e}")
+            check(err <= 1.05 * err_fused,
+                  f"route {name} dim={dim}: mean rel Frobenius err {err} "
+                  f"against the fused kernel's {err_fused}")
+
+    # 12. the Jacobi CP projection against eigh, and its main path
+    h_li = torch.complex(*rho0)          # config-2 linear-inversion estimates
+    x = torch.randn((CHECK_BATCH, 16, 16), generator=gen, device=dev,
+                    dtype=torch.complex64)
+    for name, h in (("linear inversion", h_li[:CHECK_BATCH]),
+                    ("Gaussian", (x + x.transpose(1, 2).conj()) / 2)):
+        kern = pallas_eigh.cp_project_pallas(h, sweeps=CP_SWEEPS)
+        exact = project_superoperators.proj_choi_to_completely_positive(
+            h.to(torch.complex128))
+        err = (kern.to(exact.dtype) - exact).abs().max().item()
+        print(f"check cp_project: {name} B={h.shape[0]} sweeps={CP_SWEEPS} "
+              f"max|kernel-eigh f64|={err:.3e}")
+        check(err < 1e-4, f"cp_project {name}: {err:.3e} from eigh")
+    torch.cuda.synchronize()
+    pallas_eigh.cp_project_pallas.launches = 0
+    pos = pallas_eigh.cp_project_pallas(h_li, sweeps=CP_SWEEPS)
+    torch.cuda.synchronize()
+    launches_cp = pallas_eigh.cp_project_pallas.launches
+    exact = project_superoperators.proj_choi_to_completely_positive(
+        h_li.to(torch.complex128))
+    err_cp = (pos.to(exact.dtype) - exact).abs().max().item()
+    print(f"main path cp_project: B={BATCH} launches={launches_cp} "
+          f"max|kernel-eigh f64|={err_cp:.3e}")
+    check(launches_cp > 0, "cp_project: the kernel was not launched")
+    check(bool(torch.isfinite(pos).all()), "cp_project: non-finite output")
+    check(err_cp < 1e-4, f"cp_project at B={BATCH}: {err_cp:.3e} from eigh")
+    del exact
+
+    # 13. timing of the CP projection, and both new kernels' bounds
+    ms_cp, _ = cuda_ms(lambda: pallas_eigh.cp_project_pallas(
+        h_li, sweeps=CP_SWEEPS))
+    ms_cpp, _ = cuda_ms(lambda: pallas_eigh.cp_project_reference(
+        h_li, CP_SWEEPS))
+    ms_lib, _ = cuda_ms(lambda: project_superoperators
+                        .proj_choi_to_completely_positive(h_li))
+    ms_eigh, _ = cuda_ms(lambda: torch.linalg.eigh(h_li))
+    cp_bound = bound_ms(BATCH * pallas_eigh.cp_project_flops(CP_SWEEPS),
+                        2 * nbytes(h_li))
+    bound_1q = bound_ms(
+        BATCH * lanes_apg.apg_fused_flops_per_solve(a1_np.shape[0], 2),
+        nbytes(in32_1q.ar, in32_1q.ai, n1, *rho0_1q, *rho0_1q))
+    print(f"timing cp_project: B={BATCH} sweeps={CP_SWEEPS} kernel "
+          f"{ms_cp:.3f} ms, plain {ms_cpp:.3f} ms, "
+          f"proj_choi_to_completely_positive {ms_lib:.3f} ms (torch.linalg."
+          f"eigh alone {ms_eigh:.3f} ms) on {card}")
+    for name, ms_k, bound in (("apg_fused_1q", ms_k1, bound_1q),
+                              ("cp_project", ms_cp, cp_bound)):
+        print(f"bound {name}: {bound[0]:.3f} ms ({bound[1]}), kernel at "
+              f"{100 * bound[0] / ms_k:.1f}% of it")
+
+    def record(name, source, replaces, launch_count, err, ms_k, ms_p, bound,
+               library_ms=None):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launch_count,
                 "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
                 "bound_ms": bound[0], "bound_by": bound[1],
-                "library_ms": None}
+                "library_ms": library_ms}
 
     qv_src = "forest_benchmarking_tpu_torch/csrc/qv_traj.cu"
+    apg_src = "forest_benchmarking_tpu_torch/csrc/apg_fused.cu"
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
-        record("apg_fused", "forest_benchmarking_tpu_torch/csrc/apg_fused.cu",
+        record("apg_fused", apg_src,
                "forest_benchmarking_tpu/ops/lanes_apg.py:674", launches,
                max_abs_err, timing["headline"][0], timing["headline"][1],
                apg_bound),
+        dict(record("apg_fused_1q", apg_src,
+                    "forest_benchmarking_tpu/ops/lanes_apg.py:674",
+                    launches_1q, err_1q[0], ms_k1, ms_p1, bound_1q),
+             median_abs_err=err_1q[1], q99_abs_err=err_1q[2]),
+        record("cp_project", apg_src,
+               "forest_benchmarking_tpu/ops/pallas_eigh.py:68", launches_cp,
+               err_cp, ms_cp, ms_cpp, cp_bound, library_ms=ms_lib),
         dict(record("traj_probs", qv_src,
                     "forest_benchmarking_tpu/ops/pallas_traj.py:301",
                     qv_launches["traj_probs"], err_t, ms_t, ms_tp, traj_bound),

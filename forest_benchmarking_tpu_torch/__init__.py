@@ -19,6 +19,13 @@ and Kraus-trajectory evolutions run as hand-written CUDA kernels
 (``csrc/qv_traj.cu``) on the card and as their plain PyTorch versions on CPU
 tensors; the exact density-matrix method is plain PyTorch.
 
+Slice 3 covers the rest of batched process tomography at the array level:
+every route of ``tomography.pgdb_process_estimate_batched`` (the
+per-problem PGDB and APG solvers over ``ops.project_superoperators``, and
+the fused solver at dim=2 as well as dim=4 on the card), and the
+standalone Jacobi CP projection ``ops.pallas_eigh.cp_project_pallas``, a
+hand-written CUDA kernel on the card.
+
 The package imports neither JAX nor the JAX package: it keeps its own
 copies of the host helpers it needs. The quantum-volume entry points run on
 the card unless the caller passes ``device="cpu"``; the tomography entry

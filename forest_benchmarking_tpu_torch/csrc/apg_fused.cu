@@ -1,11 +1,16 @@
-// apg_fused.cu -- the fused APG process-MLE solve for 2Q (dim = 4), f32,
-// hand-written for NVIDIA Hopper (sm_90a).
+// apg_fused.cu -- the fused APG process-MLE solve for 2Q (dim = 4) and 1Q
+// (dim = 2) channels, and the standalone cyclic-Jacobi CP projection of
+// 16x16 Hermitian matrices; f32, hand-written for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel in forest_benchmarking_tpu/ops/lanes_apg.py:
-// `apg_fused` (its pallas_call in `_run_pallas`, body `apg_fused_lanes`,
-// helpers `_dykstra`, `_warm_cp`, `_multi_sweep`, `_rotation_coeffs`,
-// `_proj_tp`). Same algorithm and op order as the plain PyTorch version
-// `apg_fused_reference` in forest_benchmarking_tpu_torch/ops/lanes_apg.py:
+// Replaces two TPU kernels:
+// - forest_benchmarking_tpu/ops/lanes_apg.py: `apg_fused` (its pallas_call
+//   in `_run_pallas`, body `apg_fused_lanes`, helpers `_dykstra`, `_warm_cp`,
+//   `_multi_sweep`, `_rotation_coeffs`, `_proj_tp`), at dim = 4 and dim = 2;
+// - forest_benchmarking_tpu/ops/pallas_eigh.py: `cp_project_pallas` (body
+//   `_jacobi_pos_part`), which shares the Jacobi sweep of the fused solve.
+// Same algorithm and op order as the plain PyTorch versions
+// `apg_fused_reference` (ops/lanes_apg.py) and `cp_project_reference`
+// (ops/pallas_eigh.py) in forest_benchmarking_tpu_torch:
 //
 //   est = Dykstra(rho0)                       (init_iters, init_sweeps)
 //   for each phase (outer, dykstra, sweeps), outer times:
@@ -20,29 +25,41 @@
 // V, run cyclic-Jacobi sweeps, clip negative eigenvalues, reconstruct) and
 // the TP projection; V carries across Dykstra iterations and outer steps.
 //
-// Layout: one thread block per problem, 256 threads, thread t owning Choi
-// entry (i, j) = (t / 16, t % 16). The elementwise APG/Dykstra state (est,
-// prev, the two Dykstra corrections, the Dykstra iterate) lives in that
-// thread's registers; the matrices that threads exchange (operand, H, HV,
-// M, V) and the counts and eta vectors live in shared memory (~19 KB per
-// block at R = 1080 rows). The TPU kernel's pair-layout permutations, fences
-// and vreg tiling are not carried: a Jacobi round rotates the pairs (p, q)
-// of `_round_robin_pairs` in place.
+// Layout: 256 threads per block. A problem's Choi entries (i, j), n = D^2
+// of each, are held one per thread, by a group of n^2 threads: at D = 4 one
+// group (one problem) per block, at D = 2 sixteen groups of 16 threads
+// (sixteen problems) per block. The schedule is static, so every problem of
+// a block runs the same steps and the block-wide __syncthreads points serve
+// every group. The elementwise APG/Dykstra state (est, prev, the two
+// Dykstra corrections, the Dykstra iterate) lives in the thread's registers;
+// the matrices that threads exchange (operand, H, HV, M, V) and the counts
+// and eta vectors live in shared memory. The TPU kernel's pair-layout
+// permutations, fences and vreg tiling are not carried: a Jacobi round
+// rotates the pairs (p, q) of `_round_robin_pairs` in place.
 //
 // What bounds it on an H100:
-// - L2 bytes of A. Both A contractions are computed here, by hand: p =
-//   Re(A x) with one warp per row (lanes read the row coalesced, shuffle
+// - D = 4: L2 bytes of A. Both A contractions are computed here, by hand:
+//   p = Re(A x) with one warp per row (lanes read the row coalesced, shuffle
 //   reduction), and A^T eta with thread j summing column j over the rows.
 //   The two f32 planes of A (1080 x 256) are 2.2 MB, shared by all blocks
 //   and resident in the 50 MB L2, and every block re-reads them on each
 //   pass: 1 pass for the first cost plus 3 per outer step (p and A^T eta at
 //   y, p for the cost of the candidate). Headline schedule: 16 passes =
 //   35 MB from L2 per solve; parity schedule: 133 passes = 294 MB per solve.
-//   Tiles of P problems per block would divide that by P (later work).
-// - The serial Jacobi rounds: 15 rounds per sweep, each three steps
+// - D = 2: A is 36 x 16 (4.6 KB in two planes), so each block stages it in
+//   shared memory once (rows padded to 17 floats: the p pass, where thread l
+//   takes rows l, l + 16, ..., reads without bank conflicts) and no pass
+//   touches device memory. What is left is the serial Jacobi rounds and the
+//   barriers between the steps of every Dykstra iteration.
+// - Both: the serial Jacobi rounds, n - 1 per sweep, each three steps
 //   (coefficients, column rotations, row rotations) with a __syncthreads
-//   between them. Many resident blocks per SM (small shared-memory and
-//   register footprint) hide that latency.
+//   between them. Many resident blocks per SM hide that latency.
+//
+// cp_project: one block of 256 threads per 16x16 matrix, thread t owning
+// entry (t / 16, t % 16); H is read as given (complex64, interleaved), V = I,
+// `sweeps` Jacobi sweeps, then V diag(max(m_kk, 0)) V^dag is written.
+// Bound: the 90 serial rounds of 6 sweeps, as above; its bytes (8 KB per
+// matrix) take a tenth of its operations' time at the card's peaks.
 
 #include <cuda_runtime.h>
 
@@ -59,18 +76,25 @@ struct ApgSchedule {
 
 namespace {
 
-constexpr int D = 4;             // Hilbert-space dimension (2 qubits)
-constexpr int N = D * D;         // Choi matrix side
-constexpr int NN = N * N;        // Choi matrix entries
-constexpr int THREADS = NN;      // one thread per entry
+constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int NPAIRS = N / 2;
-constexpr int NROUNDS = N - 1;
 constexpr float EPS_ROT = 1e-18f;  // f32 rotation threshold of _rotation_coeffs
 constexpr float EPS_P = 1e-6f;     // probability clamp
+constexpr int PAD_1Q = 17;         // row stride of A in shared memory at D = 2
 
-// _round_robin_pairs(16): NROUNDS rounds of NPAIRS disjoint pairs (p < q).
-__constant__ unsigned char c_pairs[NROUNDS][NPAIRS][2] = {
+// Shapes of the problem at Hilbert-space dimension D.
+template <int D>
+struct Dims {
+  static constexpr int N = D * D;           // Choi matrix side
+  static constexpr int NN = N * N;          // Choi matrix entries
+  static constexpr int NPAIRS = N / 2;
+  static constexpr int NROUNDS = N - 1;
+  static constexpr int HALF = NN / 2;       // (row, pair) tasks of a rotation
+  static constexpr int P = THREADS / NN;    // problems per block
+};
+
+// _round_robin_pairs(16): 15 rounds of 8 disjoint pairs (p < q).
+__constant__ unsigned char c_pairs16[15][8][2] = {
     {{0, 15}, {1, 14}, {2, 13}, {3, 12}, {4, 11}, {5, 10}, {6, 9}, {7, 8}},
     {{0, 14}, {13, 15}, {1, 12}, {2, 11}, {3, 10}, {4, 9}, {5, 8}, {6, 7}},
     {{0, 13}, {12, 14}, {11, 15}, {1, 10}, {2, 9}, {3, 8}, {4, 7}, {5, 6}},
@@ -88,16 +112,45 @@ __constant__ unsigned char c_pairs[NROUNDS][NPAIRS][2] = {
     {{0, 1}, {2, 15}, {3, 14}, {4, 13}, {5, 12}, {6, 11}, {7, 10}, {8, 9}},
 };
 
-struct Shared {
-  float sr[NN], si[NN];    // operand of the A products, CP input, TP input
-  float hr[NN], hi[NN];    // hermitianized CP input H
-  float tr[NN], ti[NN];    // H V
-  float mr[NN], mi[NN];    // M = V^dag H V, rotated in place by the sweeps
-  float vr[NN], vi[NN];    // eigenbasis carried across projections
-  float rot[4][NPAIRS];    // this round's c, s, e_r, e_i per pair
-  float ptr[D * D], pti[D * D];  // Tr_out of the TP input
-  float red[WARPS];        // per-warp partial sums of the cost
-  unsigned char pairs[NROUNDS][NPAIRS][2];
+// _round_robin_pairs(4): 3 rounds of 2 disjoint pairs (p < q).
+__constant__ unsigned char c_pairs4[3][2][2] = {
+    {{0, 3}, {1, 2}},
+    {{0, 2}, {1, 3}},
+    {{0, 1}, {2, 3}},
+};
+
+template <int D>
+using Pairs = unsigned char[Dims<D>::NROUNDS][Dims<D>::NPAIRS][2];
+
+// Copy the pair table of dimension D into shared memory (threads < its size).
+template <int D>
+__device__ __forceinline__ void load_pairs(Pairs<D>& pairs, int t) {
+  constexpr int SIZE = Dims<D>::NROUNDS * Dims<D>::NPAIRS * 2;
+  const unsigned char* src;
+  if constexpr (D == 4)
+    src = &c_pairs16[0][0][0];
+  else
+    src = &c_pairs4[0][0][0];
+  if (t < SIZE) (&pairs[0][0][0])[t] = src[t];
+}
+
+// The matrices the Jacobi sweeps rotate: M, V and one round's coefficients.
+template <int D>
+struct Eig {
+  float mr[Dims<D>::NN], mi[Dims<D>::NN];  // M, rotated in place by the sweeps
+  float vr[Dims<D>::NN], vi[Dims<D>::NN];  // eigenbasis
+  float rot[4][Dims<D>::NPAIRS];           // this round's c, s, e_r, e_i
+};
+
+// One problem's shared matrices in the fused solve.
+template <int D>
+struct Mats {
+  float sr[Dims<D>::NN], si[Dims<D>::NN];  // operand of the A products, CP
+                                           // input, TP input
+  float hr[Dims<D>::NN], hi[Dims<D>::NN];  // hermitianized CP input H
+  float tr[Dims<D>::NN], ti[Dims<D>::NN];  // H V
+  Eig<D> e;                                // M = V^dag H V and V
+  float ptr[D * D], pti[D * D];            // Tr_out of the TP input
 };
 
 // Jacobi rotation coefficients, exactly as _rotation_coeffs.
@@ -120,27 +173,33 @@ __device__ __forceinline__ void rotation_coeffs(float apq_r, float apq_i,
 }
 
 // `sweeps` cyclic-Jacobi sweeps: M <- G^dag M G and V <- V G, round by round.
-__device__ void jacobi_sweeps(Shared& s, int sweeps, int t) {
+// l is the thread's entry within its problem's group of NN threads.
+template <int D>
+__device__ void jacobi_sweeps(Eig<D>& s, const Pairs<D>& pairs, int sweeps,
+                              int l) {
+  using C = Dims<D>;
+  constexpr int N = C::N;
   for (int sw = 0; sw < sweeps; ++sw) {
-    for (int r = 0; r < NROUNDS; ++r) {
-      if (t < NPAIRS) {
-        const int p = s.pairs[r][t][0], q = s.pairs[r][t][1];
+    for (int r = 0; r < C::NROUNDS; ++r) {
+      if (l < C::NPAIRS) {
+        const int p = pairs[r][l][0], q = pairs[r][l][1];
         float c, sn, er, ei;
         rotation_coeffs(s.mr[p * N + q], s.mi[p * N + q], s.mr[p * N + p],
                         s.mr[q * N + q], c, sn, er, ei);
-        s.rot[0][t] = c;
-        s.rot[1][t] = sn;
-        s.rot[2][t] = er;
-        s.rot[3][t] = ei;
+        s.rot[0][l] = c;
+        s.rot[1][l] = sn;
+        s.rot[2][l] = er;
+        s.rot[3][l] = ei;
       }
       __syncthreads();
       {
-        // columns p, q of M (threads 0..127) and of V (threads 128..255):
+        // columns p, q of M (first half of the group) and of V (second half):
         // p <- c p - s conj(e) q,  q <- s e p + c q
-        const int u = t & 127, row = u >> 3, k = u & 7;
-        const int p = s.pairs[r][k][0], q = s.pairs[r][k][1];
-        float* xr = t < 128 ? s.mr : s.vr;
-        float* xi = t < 128 ? s.mi : s.vi;
+        const unsigned u = static_cast<unsigned>(l) & (C::HALF - 1);
+        const int row = u / C::NPAIRS, k = u & (C::NPAIRS - 1);
+        const int p = pairs[r][k][0], q = pairs[r][k][1];
+        float* xr = l < C::HALF ? s.mr : s.vr;
+        float* xi = l < C::HALF ? s.mi : s.vi;
         const float c = s.rot[0][k], sn = s.rot[1][k];
         const float er = s.rot[2][k], ei = s.rot[3][k];
         const float pr = xr[row * N + p], pi = xi[row * N + p];
@@ -153,10 +212,11 @@ __device__ void jacobi_sweeps(Shared& s, int sweeps, int t) {
         xi[row * N + q] = sn * tpi + c * qi;
       }
       __syncthreads();
-      if (t < 128) {
+      if (l < C::HALF) {
         // rows p, q of M: p <- c p - s e q,  q <- s conj(e) p + c q
-        const int col = t >> 3, k = t & 7;
-        const int p = s.pairs[r][k][0], q = s.pairs[r][k][1];
+        const unsigned u = static_cast<unsigned>(l);
+        const int col = u / C::NPAIRS, k = u & (C::NPAIRS - 1);
+        const int p = pairs[r][k][0], q = pairs[r][k][1];
         const float c = s.rot[0][k], sn = s.rot[1][k];
         const float er = s.rot[2][k], ei = s.rot[3][k];
         const float pr = s.mr[p * N + col], pi = s.mi[p * N + col];
@@ -173,40 +233,13 @@ __device__ void jacobi_sweeps(Shared& s, int sweeps, int t) {
   }
 }
 
-// CP projection of the matrix in s.sr/s.si (written and synced by the
-// caller) in the carried eigenbasis; this thread's entry of the positive part.
-__device__ void warm_cp(Shared& s, int sweeps, int t, float& pos_r,
-                        float& pos_i) {
-  const int i = t >> 4, j = t & 15;
-  s.hr[t] = (s.sr[i * N + j] + s.sr[j * N + i]) / 2.f;
-  s.hi[t] = (s.si[i * N + j] - s.si[j * N + i]) / 2.f;
-  __syncthreads();
-  // T = H V
-  float ar = s.hr[i * N] * s.vr[j] - s.hi[i * N] * s.vi[j];
-  float ai = s.hr[i * N] * s.vi[j] + s.hi[i * N] * s.vr[j];
-  for (int k = 1; k < N; ++k) {
-    const float hr = s.hr[i * N + k], hi = s.hi[i * N + k];
-    const float vr = s.vr[k * N + j], vi = s.vi[k * N + j];
-    ar = ar + hr * vr - hi * vi;
-    ai = ai + hr * vi + hi * vr;
-  }
-  s.tr[t] = ar;
-  s.ti[t] = ai;
-  __syncthreads();
-  // M = V^dag T
-  ar = s.vr[i] * s.tr[j] + s.vi[i] * s.ti[j];
-  ai = s.vr[i] * s.ti[j] - s.vi[i] * s.tr[j];
-  for (int k = 1; k < N; ++k) {
-    const float vr = s.vr[k * N + i], vi = s.vi[k * N + i];
-    const float tr = s.tr[k * N + j], ti = s.ti[k * N + j];
-    ar = ar + vr * tr + vi * ti;
-    ai = ai + vr * ti - vi * tr;
-  }
-  s.mr[t] = ar;
-  s.mi[t] = ai;
-  __syncthreads();
-  jacobi_sweeps(s, sweeps, t);
-  // pos = W diag(max(m_kk, 0)) W^dag, W = the rotated V
+// Entry (i, j) = (l / N, l % N) of W diag(max(m_kk, 0)) W^dag, W = s.vr/vi.
+template <int D>
+__device__ __forceinline__ void pos_part_entry(const Eig<D>& s, int l,
+                                               float& pos_r, float& pos_i) {
+  constexpr int N = Dims<D>::N;
+  const unsigned u = static_cast<unsigned>(l);
+  const int i = u / N, j = u % N;
   pos_r = 0.f;
   pos_i = 0.f;
   for (int k = 0; k < N; ++k) {
@@ -218,26 +251,69 @@ __device__ void warm_cp(Shared& s, int sweeps, int t, float& pos_r,
   }
 }
 
-// TP projection X - kron(Tr_out(X) - I, I) / D of the matrix whose entry t
-// is (xr, xi).
-__device__ void proj_tp(Shared& s, int t, float xr, float xi, float& out_r,
-                        float& out_i) {
-  s.sr[t] = xr;
-  s.si[t] = xi;
+// CP projection of the matrix in s.sr/s.si (written and synced by the
+// caller) in the carried eigenbasis; this thread's entry of the positive part.
+template <int D>
+__device__ void warm_cp(Mats<D>& s, const Pairs<D>& pairs, int sweeps, int l,
+                        float& pos_r, float& pos_i) {
+  constexpr int N = Dims<D>::N;
+  const unsigned u = static_cast<unsigned>(l);
+  const int i = u / N, j = u % N;
+  s.hr[l] = (s.sr[i * N + j] + s.sr[j * N + i]) / 2.f;
+  s.hi[l] = (s.si[i * N + j] - s.si[j * N + i]) / 2.f;
   __syncthreads();
-  if (t < D * D) {
-    const int a = t >> 2, c = t & 3;
+  // T = H V
+  float ar = s.hr[i * N] * s.e.vr[j] - s.hi[i * N] * s.e.vi[j];
+  float ai = s.hr[i * N] * s.e.vi[j] + s.hi[i * N] * s.e.vr[j];
+  for (int k = 1; k < N; ++k) {
+    const float hr = s.hr[i * N + k], hi = s.hi[i * N + k];
+    const float vr = s.e.vr[k * N + j], vi = s.e.vi[k * N + j];
+    ar = ar + hr * vr - hi * vi;
+    ai = ai + hr * vi + hi * vr;
+  }
+  s.tr[l] = ar;
+  s.ti[l] = ai;
+  __syncthreads();
+  // M = V^dag T
+  ar = s.e.vr[i] * s.tr[j] + s.e.vi[i] * s.ti[j];
+  ai = s.e.vr[i] * s.ti[j] - s.e.vi[i] * s.tr[j];
+  for (int k = 1; k < N; ++k) {
+    const float vr = s.e.vr[k * N + i], vi = s.e.vi[k * N + i];
+    const float tr = s.tr[k * N + j], ti = s.ti[k * N + j];
+    ar = ar + vr * tr + vi * ti;
+    ai = ai + vr * ti - vi * tr;
+  }
+  s.e.mr[l] = ar;
+  s.e.mi[l] = ai;
+  __syncthreads();
+  jacobi_sweeps<D>(s.e, pairs, sweeps, l);
+  pos_part_entry<D>(s.e, l, pos_r, pos_i);
+}
+
+// TP projection X - kron(Tr_out(X) - I, I) / D of the matrix whose entry l
+// is (xr, xi).
+template <int D>
+__device__ void proj_tp(Mats<D>& s, int l, float xr, float xi, float& out_r,
+                        float& out_i) {
+  constexpr int N = Dims<D>::N;
+  s.sr[l] = xr;
+  s.si[l] = xi;
+  __syncthreads();
+  if (l < D * D) {
+    const unsigned u = static_cast<unsigned>(l);
+    const int a = u / D, c = u % D;
     float accr = s.sr[(a * D) * N + c * D], acci = s.si[(a * D) * N + c * D];
     for (int b = 1; b < D; ++b) {
       accr += s.sr[(a * D + b) * N + c * D + b];
       acci += s.si[(a * D + b) * N + c * D + b];
     }
-    s.ptr[t] = accr;
-    s.pti[t] = acci;
+    s.ptr[l] = accr;
+    s.pti[l] = acci;
   }
   __syncthreads();
-  const int i = t >> 4, j = t & 15;
-  const int a = i >> 2, b = i & 3, c = j >> 2, d = j & 3;
+  const unsigned u = static_cast<unsigned>(l);
+  const unsigned i = u / N, j = u % N;
+  const unsigned a = i / D, b = i % D, c = j / D, d = j % D;
   out_r = xr;
   out_i = xi;
   if (b == d) {
@@ -246,23 +322,24 @@ __device__ void proj_tp(Shared& s, int t, float xr, float xi, float& out_r,
   }
 }
 
-// `iters` Dykstra iterations (CP then TP) on the matrix whose entry t is
+// `iters` Dykstra iterations (CP then TP) on the matrix whose entry l is
 // (zr, zi); ends on the TP half-step. The result replaces (zr, zi).
-__device__ void dykstra(Shared& s, int t, int iters, int sweeps, float& zr,
-                        float& zi) {
+template <int D>
+__device__ void dykstra(Mats<D>& s, const Pairs<D>& pairs, int l, int iters,
+                        int sweeps, float& zr, float& zi) {
   float cp_r = 0.f, cp_i = 0.f, tp_r = 0.f, tp_i = 0.f;
   float st_r = zr, st_i = zi;
   for (int it = 0; it < iters; ++it) {
     const float pre_r = st_r - cp_r, pre_i = st_i - cp_i;
-    s.sr[t] = pre_r;
-    s.si[t] = pre_i;
+    s.sr[l] = pre_r;
+    s.si[l] = pre_i;
     __syncthreads();
     float pos_r, pos_i;
-    warm_cp(s, sweeps, t, pos_r, pos_i);
+    warm_cp<D>(s, pairs, sweeps, l, pos_r, pos_i);
     cp_r = pos_r - pre_r;
     cp_i = pos_i - pre_i;
     const float pre2_r = pos_r - tp_r, pre2_i = pos_i - tp_i;
-    proj_tp(s, t, pre2_r, pre2_i, st_r, st_i);
+    proj_tp<D>(s, l, pre2_r, pre2_i, st_r, st_i);
     tp_r = st_r - pre2_r;
     tp_i = st_i - pre2_i;
   }
@@ -270,13 +347,18 @@ __device__ void dykstra(Shared& s, int t, int iters, int sweeps, float& zr,
   zi = st_i;
 }
 
-// One pass over A: p_r = max(Re(A x)_r, EPS_P) for x in s.sr/s.si (written
-// and synced by the caller), one warp per row. With `cost` false it stores
-// eta_r = n_r / p_r; with `cost` true it returns -sum_r n_r log p_r, the same
-// value in every thread. Ends with a __syncthreads.
-__device__ float a_pass(Shared& s, const float* __restrict__ a_r,
+// ---------------------------------------------------------------------------
+// The passes over A. D = 4: A in device memory (L2), one problem per block.
+// ---------------------------------------------------------------------------
+
+// p_r = max(Re(A x)_r, EPS_P) for x in s.sr/s.si (written and synced by the
+// caller), one warp per row. With `cost` false it stores eta_r = n_r / p_r;
+// with `cost` true it returns -sum_r n_r log p_r, the same value in every
+// thread. Ends with a __syncthreads.
+__device__ float a_pass(Mats<4>& s, float* red, const float* __restrict__ a_r,
                         const float* __restrict__ a_i, const float* sn,
                         float* seta, int rows, int t, bool cost) {
+  constexpr int NN = Dims<4>::NN;
   const int w = t >> 5, lane = t & 31;
   float part = 0.f;
   for (int r = w; r < rows; r += WARPS) {
@@ -301,20 +383,20 @@ __device__ float a_pass(Shared& s, const float* __restrict__ a_r,
     __syncthreads();
     return 0.f;
   }
-  if (lane == 0) s.red[w] = part;
+  if (lane == 0) red[w] = part;
   __syncthreads();
   float total = 0.f;
-  for (int k = 0; k < WARPS; ++k) total += s.red[k];
+  for (int k = 0; k < WARPS; ++k) total += red[k];
   return -total;
 }
 
-__device__ float cost_of(Shared& s, const float* __restrict__ a_r,
+__device__ float cost_of(Mats<4>& s, float* red, const float* __restrict__ a_r,
                          const float* __restrict__ a_i, const float* sn,
                          int rows, int t, float xr, float xi) {
   s.sr[t] = xr;
   s.si[t] = xi;
   __syncthreads();
-  return a_pass(s, a_r, a_i, sn, nullptr, rows, t, true);
+  return a_pass(s, red, a_r, a_i, sn, nullptr, rows, t, true);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -325,25 +407,28 @@ __global__ void __launch_bounds__(THREADS)
                      const float* __restrict__ rho0_i,
                      float* __restrict__ out_r, float* __restrict__ out_i,
                      int rows, const ApgSchedule sch) {
-  __shared__ Shared s;
+  constexpr int NN = Dims<4>::NN;
+  static_assert(Dims<4>::P == 1, "one problem per block at D = 4");
+  __shared__ Mats<4> s;
+  __shared__ float red[WARPS];     // per-warp partial sums of the cost
+  __shared__ Pairs<4> pairs;
   extern __shared__ float dyn[];
   float* sn = dyn;            // counts of this problem, rows entries
   float* seta = dyn + rows;   // n / p, rows entries
   const int t = threadIdx.x;
   const size_t b = blockIdx.x;
 
-  if (t < NROUNDS * NPAIRS * 2)
-    (&s.pairs[0][0][0])[t] = (&c_pairs[0][0][0])[t];
+  load_pairs<4>(pairs, t);
   for (int r = t; r < rows; r += THREADS) sn[r] = n[b * rows + r];
-  s.vr[t] = (t >> 4) == (t & 15) ? 1.f : 0.f;
-  s.vi[t] = 0.f;
+  s.e.vr[t] = (t >> 4) == (t & 15) ? 1.f : 0.f;
+  s.e.vi[t] = 0.f;
   float est_r = rho0_r[b * NN + t], est_i = rho0_i[b * NN + t];
   // every shared buffer above is read only after the first __syncthreads
-  dykstra(s, t, sch.init_iters, sch.init_sweeps, est_r, est_i);
+  dykstra<4>(s, pairs, t, sch.init_iters, sch.init_sweeps, est_r, est_i);
 
   float prev_r = est_r, prev_i = est_i;
   float tk = 1.f;
-  float old_cost = cost_of(s, a_r, a_i, sn, rows, t, est_r, est_i);
+  float old_cost = cost_of(s, red, a_r, a_i, sn, rows, t, est_r, est_i);
   for (int ph = 0; ph < sch.n_phases; ++ph) {
     for (int it = 0; it < sch.outer[ph]; ++it) {
       const float t_next = (1.f + sqrtf(1.f + 4.f * tk * tk)) / 2.f;
@@ -353,7 +438,7 @@ __global__ void __launch_bounds__(THREADS)
       s.sr[t] = y_r;
       s.si[t] = y_i;
       __syncthreads();
-      a_pass(s, a_r, a_i, sn, seta, rows, t, false);
+      a_pass(s, red, a_r, a_i, sn, seta, rows, t, false);
       // gradient entry t: -sum_r A_r[r, t] eta_r + i sum_r A_i[r, t] eta_r
       float sum_r = 0.f, g_i = 0.f;
       for (int r = 0; r < rows; ++r) {
@@ -364,8 +449,8 @@ __global__ void __launch_bounds__(THREADS)
       const float g_r = -sum_r;
       float z_r = y_r - sch.inv_mu * g_r;
       float z_i = y_i - sch.inv_mu * g_i;
-      dykstra(s, t, sch.dykstra[ph], sch.sweeps[ph], z_r, z_i);
-      const float new_cost = cost_of(s, a_r, a_i, sn, rows, t, z_r, z_i);
+      dykstra<4>(s, pairs, t, sch.dykstra[ph], sch.sweeps[ph], z_r, z_i);
+      const float new_cost = cost_of(s, red, a_r, a_i, sn, rows, t, z_r, z_i);
       // O'Donoghue-Candes function restart
       tk = new_cost > old_cost ? 1.f : t_next;
       prev_r = est_r;
@@ -375,9 +460,162 @@ __global__ void __launch_bounds__(THREADS)
       old_cost = new_cost;
     }
   }
-  dykstra(s, t, sch.final_iters, sch.final_sweeps, est_r, est_i);
+  dykstra<4>(s, pairs, t, sch.final_iters, sch.final_sweeps, est_r, est_i);
   out_r[b * NN + t] = est_r;
   out_i[b * NN + t] = est_i;
+}
+
+// ---------------------------------------------------------------------------
+// D = 2: sixteen problems per block, A staged in shared memory.
+// ---------------------------------------------------------------------------
+
+// The pass over A for the problem of this thread's group, x in s.sr/s.si
+// (written and synced by the caller): thread l takes rows l, l + 16, ...
+// of A (shared, row stride PAD_1Q). With `cost` false it stores the group's
+// eta_r = n_r / max(Re(A x)_r, EPS_P); with `cost` true it returns the
+// group's -sum_r n_r log p_r in each of its threads. Ends with a
+// __syncthreads.
+__device__ float a_pass_1q(const Mats<2>& s, const float* sar, const float* sai,
+                           const float* sn, float* seta, int rows, int l,
+                           bool cost) {
+  constexpr int NN = Dims<2>::NN;
+  float part = 0.f;
+  for (int r = l; r < rows; r += NN) {
+    const float* rr = sar + r * PAD_1Q;
+    const float* ri = sai + r * PAD_1Q;
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < NN; ++k) acc += rr[k] * s.sr[k] - ri[k] * s.si[k];
+    const float p = fmaxf(acc, EPS_P);
+    if (cost)
+      part += sn[r] * logf(p);
+    else
+      seta[r] = sn[r] / p;
+  }
+  if (cost) {
+    // the group's 16 lanes are one half of a warp
+#pragma unroll
+    for (int off = NN / 2; off > 0; off >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+  }
+  __syncthreads();
+  return -part;
+}
+
+__global__ void __launch_bounds__(THREADS)
+    apg_fused_1q_kernel(const float* __restrict__ a_r,
+                        const float* __restrict__ a_i,
+                        const float* __restrict__ n,
+                        const float* __restrict__ rho0_r,
+                        const float* __restrict__ rho0_i,
+                        float* __restrict__ out_r, float* __restrict__ out_i,
+                        int batch, int rows, const ApgSchedule sch) {
+  using C = Dims<2>;
+  constexpr int NN = C::NN, P = C::P;
+  __shared__ Mats<2> mats[P];
+  __shared__ Pairs<2> pairs;
+  extern __shared__ float dyn[];
+  float* sar = dyn;                       // A, real plane, rows x PAD_1Q
+  float* sai = sar + rows * PAD_1Q;       // A, imaginary plane
+  float* sn_all = sai + rows * PAD_1Q;    // counts of the block, P x rows
+  float* seta_all = sn_all + P * rows;    // n / p, P x rows
+  const int t = threadIdx.x, g = t / NN, l = t % NN;
+  const size_t first = static_cast<size_t>(blockIdx.x) * P;
+  const size_t b = first + g;
+  const bool live = b < static_cast<size_t>(batch);
+  Mats<2>& s = mats[g];
+  const float* sn = sn_all + g * rows;
+  float* seta = seta_all + g * rows;
+
+  load_pairs<2>(pairs, t);
+  for (int k = t; k < rows * NN; k += THREADS) {
+    sar[(k / NN) * PAD_1Q + k % NN] = a_r[k];
+    sai[(k / NN) * PAD_1Q + k % NN] = a_i[k];
+  }
+  // problems past the batch run on zero counts and a zero start, and are
+  // not written back
+  const size_t n_end = static_cast<size_t>(batch) * rows;
+  for (int k = t; k < P * rows; k += THREADS) {
+    const size_t idx = first * rows + k;
+    sn_all[k] = idx < n_end ? n[idx] : 0.f;
+  }
+  s.e.vr[l] = (l >> 2) == (l & 3) ? 1.f : 0.f;
+  s.e.vi[l] = 0.f;
+  float est_r = live ? rho0_r[b * NN + l] : 0.f;
+  float est_i = live ? rho0_i[b * NN + l] : 0.f;
+  // every shared buffer above is read only after the first __syncthreads
+  dykstra<2>(s, pairs, l, sch.init_iters, sch.init_sweeps, est_r, est_i);
+
+  float prev_r = est_r, prev_i = est_i;
+  float tk = 1.f;
+  s.sr[l] = est_r;
+  s.si[l] = est_i;
+  __syncthreads();
+  float old_cost = a_pass_1q(s, sar, sai, sn, nullptr, rows, l, true);
+  for (int ph = 0; ph < sch.n_phases; ++ph) {
+    for (int it = 0; it < sch.outer[ph]; ++it) {
+      const float t_next = (1.f + sqrtf(1.f + 4.f * tk * tk)) / 2.f;
+      const float beta = (tk - 1.f) / t_next;
+      const float y_r = est_r + beta * (est_r - prev_r);
+      const float y_i = est_i + beta * (est_i - prev_i);
+      s.sr[l] = y_r;
+      s.si[l] = y_i;
+      __syncthreads();
+      a_pass_1q(s, sar, sai, sn, seta, rows, l, false);
+      // gradient entry l: -sum_r A_r[r, l] eta_r + i sum_r A_i[r, l] eta_r
+      float sum_r = 0.f, g_i = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        const float e = seta[r];
+        sum_r += sar[r * PAD_1Q + l] * e;
+        g_i += sai[r * PAD_1Q + l] * e;
+      }
+      const float g_r = -sum_r;
+      float z_r = y_r - sch.inv_mu * g_r;
+      float z_i = y_i - sch.inv_mu * g_i;
+      dykstra<2>(s, pairs, l, sch.dykstra[ph], sch.sweeps[ph], z_r, z_i);
+      s.sr[l] = z_r;
+      s.si[l] = z_i;
+      __syncthreads();
+      const float new_cost = a_pass_1q(s, sar, sai, sn, nullptr, rows, l, true);
+      // O'Donoghue-Candes function restart
+      tk = new_cost > old_cost ? 1.f : t_next;
+      prev_r = est_r;
+      prev_i = est_i;
+      est_r = z_r;
+      est_i = z_i;
+      old_cost = new_cost;
+    }
+  }
+  dykstra<2>(s, pairs, l, sch.final_iters, sch.final_sweeps, est_r, est_i);
+  if (live) {
+    out_r[b * NN + l] = est_r;
+    out_i[b * NN + l] = est_i;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The standalone CP projection (cold start, V = I).
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+    cp_project_kernel(const float2* __restrict__ h, float2* __restrict__ out,
+                      int sweeps) {
+  constexpr int NN = Dims<4>::NN;
+  __shared__ Eig<4> s;
+  __shared__ Pairs<4> pairs;
+  const int t = threadIdx.x;
+  const size_t b = blockIdx.x;
+  load_pairs<4>(pairs, t);
+  const float2 x = h[b * NN + t];
+  s.mr[t] = x.x;
+  s.mi[t] = x.y;
+  s.vr[t] = (t >> 4) == (t & 15) ? 1.f : 0.f;
+  s.vi[t] = 0.f;
+  __syncthreads();
+  jacobi_sweeps<4>(s, pairs, sweeps, t);
+  float pos_r, pos_i;
+  pos_part_entry<4>(s, t, pos_r, pos_i);
+  out[b * NN + t] = make_float2(pos_r, pos_i);
 }
 
 }  // namespace
@@ -385,16 +623,40 @@ __global__ void __launch_bounds__(THREADS)
 extern "C" int apg_fused_launch(const float* a_r, const float* a_i,
                                 const float* n, const float* rho0_r,
                                 const float* rho0_i, float* out_r,
-                                float* out_i, int batch, int rows,
+                                float* out_i, int batch, int rows, int dim,
                                 const ApgSchedule* sched, void* stream) {
   if (batch <= 0) return static_cast<int>(cudaSuccess);
-  const size_t dyn = 2 * static_cast<size_t>(rows) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      apg_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(dyn));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  apg_fused_kernel<<<batch, THREADS, dyn, static_cast<cudaStream_t>(stream)>>>(
-      a_r, a_i, n, rho0_r, rho0_i, out_r, out_i, rows, *sched);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dim == 4) {
+    const size_t dyn = 2 * static_cast<size_t>(rows) * sizeof(float);
+    err = cudaFuncSetAttribute(apg_fused_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dyn));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    apg_fused_kernel<<<batch, THREADS, dyn, st>>>(
+        a_r, a_i, n, rho0_r, rho0_i, out_r, out_i, rows, *sched);
+  } else if (dim == 2) {
+    constexpr int P = Dims<2>::P;
+    const size_t dyn = (2 * PAD_1Q + 2 * P) * static_cast<size_t>(rows) *
+                       sizeof(float);
+    err = cudaFuncSetAttribute(apg_fused_1q_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dyn));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    apg_fused_1q_kernel<<<(batch + P - 1) / P, THREADS, dyn, st>>>(
+        a_r, a_i, n, rho0_r, rho0_i, out_r, out_i, batch, rows, *sched);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cp_project_launch(const void* h, void* out, int batch,
+                                 int sweeps, void* stream) {
+  if (batch <= 0) return static_cast<int>(cudaSuccess);
+  cp_project_kernel<<<batch, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(h), static_cast<float2*>(out), sweeps);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,9 +4,10 @@ Each source ``forest_benchmarking_tpu_torch/csrc/<name>.cu`` is compiled on
 first use with ``nvcc`` for Hopper (``sm_90a``) into a shared library of its
 own with a plain C interface, loaded with ``ctypes``; the ``nvcc`` processes
 of all sources run at once. The libraries land in ``build/kernels/`` beside
-the package, named by a hash of their source and the flags, so an edited
-source builds anew and an unchanged one loads at once. Nothing here runs at
-import time.
+the package, named by a hash of the flags, the source and every file under
+``csrc/`` that the source includes (``#include "..."``), so an edited source
+or header builds anew and an unchanged one loads at once. Nothing here runs
+at import time.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -45,13 +47,36 @@ class ApgSchedule(ctypes.Structure):
     ]
 
 
-def _lib_paths() -> dict:
-    """{source stem: library path} for every ``.cu`` source."""
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _inputs(src: Path, csrc: Path) -> list:
+    """``src`` and every file under ``csrc`` that it includes, directly or
+    through another include, in a fixed order."""
+    seen, todo = set(), [src.resolve()]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            inc = (path.parent / name).resolve()
+            if inc.is_file() and csrc in inc.parents:
+                todo.append(inc)
+    return sorted(seen)
+
+
+def _lib_paths(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> dict:
+    """{source stem: library path} for every ``.cu`` source in ``csrc``."""
+    csrc = csrc.resolve()
     paths = {}
-    for src in sorted(CSRC.glob("*.cu")):
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes())
+    for src in sorted(csrc.glob("*.cu")):
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in _inputs(src, csrc):
+            h.update(path.relative_to(csrc).as_posix().encode() + b"\0")
+            h.update(path.read_bytes())
         name = f"libfbt_{src.stem}_{h.hexdigest()[:16]}.so"
-        paths[src.stem] = BUILD_DIR / name
+        paths[src.stem] = build_dir / name
     return paths
 
 
@@ -103,12 +128,12 @@ def load() -> types.SimpleNamespace:
         _build(paths)
     apg, qv = (ctypes.CDLL(str(paths[stem])) for stem in ("apg_fused",
                                                           "qv_traj"))
-    apg.apg_fused_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ApgSchedule),
-        ctypes.c_void_p]
+    apg.apg_fused_launch.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 3 + [ctypes.POINTER(ApgSchedule), ctypes.c_void_p]
     apg.apg_fused_launch.restype = ctypes.c_int
+    apg.cp_project_launch.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p]
+    apg.cp_project_launch.restype = ctypes.c_int
     qv.traj_probs_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     qv.traj_probs_launch.restype = ctypes.c_int
@@ -119,6 +144,7 @@ def load() -> types.SimpleNamespace:
     apg.fbt_cuda_error_string.restype = ctypes.c_char_p
     return types.SimpleNamespace(
         apg_fused_launch=apg.apg_fused_launch,
+        cp_project_launch=apg.cp_project_launch,
         traj_probs_launch=qv.traj_probs_launch,
         ideal_probs_launch=qv.ideal_probs_launch,
         fbt_cuda_error_string=apg.fbt_cuda_error_string)

@@ -1,4 +1,5 @@
-"""Batched calculational helpers: conjugate transpose, kron, partial trace.
+"""Batched calculational helpers: conjugate transpose, hermitian part, kron,
+partial trace.
 
 Port of ``forest_benchmarking_tpu/ops/calculational.py`` (subset). Every
 function takes arbitrary leading batch dimensions.
@@ -9,12 +10,17 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["dag", "kron", "partial_trace"]
+__all__ = ["dag", "hermitianize", "kron", "partial_trace"]
 
 
 def dag(a: torch.Tensor) -> torch.Tensor:
     """Conjugate transpose over the trailing two axes."""
     return a.transpose(-1, -2).conj()
+
+
+def hermitianize(a: torch.Tensor) -> torch.Tensor:
+    """(A + A^dagger) / 2 over the trailing two axes."""
+    return (a + dag(a)) / 2
 
 
 def kron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

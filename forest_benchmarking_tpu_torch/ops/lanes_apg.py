@@ -17,7 +17,7 @@ operations in the same order (the 16x16 and A-matrix products go through
 ``torch.matmul``, so only summation order differs). :func:`apg_fused` is the
 wrapper: it builds the warm start, then runs the plain version for CPU
 tensors and the hand-written CUDA kernel ``csrc/apg_fused.cu`` for CUDA
-tensors (dim=4, float32).
+tensors (dim=2 or dim=4, float32).
 """
 from __future__ import annotations
 
@@ -349,20 +349,21 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
     """Launch ``csrc/apg_fused.cu`` on PyTorch's current stream.
 
     Takes what :func:`apg_fused_reference` takes, as contiguous float32
-    CUDA tensors, and returns the same (est_r, est_i) planes. Adds one to
+    CUDA tensors, and returns the same (est_r, est_i) planes. ``dim`` is 4
+    (one problem per thread block) or 2 (sixteen per block). Adds one to
     ``apg_fused.launches`` per launch."""
-    if dim != 4:
+    if dim not in (2, 4):
         raise NotImplementedError(
-            f"the CUDA fused solver is built for dim=4 (2Q) only, got "
-            f"dim={dim}; the dim=2 kernel is ROADMAP.md queue 2 work")
+            f"the CUDA fused solver is built for dim=2 (1Q) and dim=4 (2Q), "
+            f"got dim={dim}")
     if len(phases) > kernels.MAX_PHASES:
         raise ValueError(f"the CUDA kernel takes at most {kernels.MAX_PHASES} "
                          f"phases, got {len(phases)}")
     rows, d4 = ar.shape
-    b = n.shape[0]
+    b, d2 = n.shape[0], dim * dim
     for name, x, shape in (("ar", ar, (rows, d4)), ("ai", ai, (rows, d4)),
-                           ("n", n, (b, rows)), ("rho0_r", rho0_r, (b, 16, 16)),
-                           ("rho0_i", rho0_i, (b, 16, 16))):
+                           ("n", n, (b, rows)), ("rho0_r", rho0_r, (b, d2, d2)),
+                           ("rho0_i", rho0_i, (b, d2, d2))):
         if x.device != ar.device or not x.is_cuda:
             raise ValueError(f"{name} must be on {ar.device}, got {x.device}")
         if x.dtype != torch.float32:
@@ -372,8 +373,9 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
                              f"{tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if d4 != 256:
-        raise ValueError(f"A must have 256 columns for dim=4, got {d4}")
+    if d4 != d2 * d2:
+        raise ValueError(f"A must have {d2 * d2} columns for dim={dim}, "
+                         f"got {d4}")
     if mu is None:
         mu = 3.0 / (2 * dim ** 2)
     sched = kernels.ApgSchedule(
@@ -389,7 +391,7 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
         err = lib.apg_fused_launch(
             ar.data_ptr(), ai.data_ptr(), n.data_ptr(), rho0_r.data_ptr(),
             rho0_i.data_ptr(), out_r.data_ptr(), out_i.data_ptr(), b, rows,
-            ctypes.byref(sched), stream)
+            dim, ctypes.byref(sched), stream)
     if err != 0:
         raise RuntimeError(f"apg_fused kernel launch failed: CUDA error "
                            f"{err} ({kernels.error_string(err)})")
@@ -446,8 +448,8 @@ def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,
     Warm-starts from the linear-inversion estimate (``pinv(A) n``, computed
     with torch outside the solve, as the JAX package does outside its
     kernel), then runs the static-schedule solve: the CUDA kernel when the
-    inputs are CUDA tensors (dim=4, complex64 A), the plain PyTorch version
-    when they are CPU tensors. ``a_pinv`` ((d4, R), optional) is a
+    inputs are CUDA tensors (dim=2 or 4, complex64 A), the plain PyTorch
+    version when they are CPU tensors. ``a_pinv`` ((d4, R), optional) is a
     precomputed ``pinv(A)``; production callers compute it once per A-matrix.
 
     ``apg_fused.launches`` counts the kernel launches.

@@ -1,4 +1,4 @@
-"""Process tomography, slice 1: the batched PGDB/APG maximum-likelihood route.
+"""Process tomography: the batched PGDB/APG maximum-likelihood routes.
 
 Port of the process path of ``forest_benchmarking_tpu/tomography.py``:
 
@@ -6,12 +6,24 @@ Port of the process path of ``forest_benchmarking_tpu/tomography.py``:
   process-tomography settings (pure numpy; the six +-X/Y/Z eigenstate
   densities come from the same rotation matrices, applied in the same order,
   as ``observable_estimation._one_q_state_prep`` in the JAX package);
-- :func:`pgdb_process_estimate_batched` with the fused-solver route
-  (``method="apg", cp_method="pallas"``), which runs
-  :func:`~forest_benchmarking_tpu_torch.ops.lanes_apg.apg_fused`.
+- the per-problem solvers :func:`_pgdb_kernel` (projected gradient with
+  backtracking) and :func:`_apg_kernel` (FISTA with function restart), each
+  projecting with
+  :func:`~forest_benchmarking_tpu_torch.ops.project_superoperators.proj_choi_to_physical`;
+- :func:`pgdb_process_estimate_batched`, which routes to them or to the
+  fused solver :func:`~forest_benchmarking_tpu_torch.ops.lanes_apg.apg_fused`
+  (``method="apg", cp_method="pallas"``).
 
-The per-problem ``while``-loop solvers (``method="pgdb"``/``"apg"`` with
-``cp_method="eigh"``/``"ns"``) come with ROADMAP.md queue 1, item 5.
+JAX writes each solver for one problem and batches it with ``vmap`` over
+``lax.while_loop``. Here each solver is written batch-first: every loop
+runs while any problem is still going and computes only those, so each
+problem stops exactly where its own JAX loop stops. Each loop iteration
+reads the number of problems still going back to the host (one
+synchronization per iteration on the card).
+
+The results-level API (``pgdb_process_estimate``,
+``linear_inv_process_estimate``, ``_extract_from_results``) needs the
+experiment data model and waits for ROADMAP.md queue 1, item 13.
 
 Conventions: column-stacking vec; the first qubit is the left-most tensor
 factor.
@@ -21,11 +33,17 @@ from __future__ import annotations
 import functools
 import itertools
 from math import pi
-from typing import Iterator, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from forest_benchmarking_tpu_torch.ops.calculational import dag
+from forest_benchmarking_tpu_torch.ops.lanes_apg import full_f32_matmul
+from forest_benchmarking_tpu_torch.ops.project_superoperators import (
+    proj_choi_to_physical)
+from forest_benchmarking_tpu_torch.ops.superoperator_transformations import (
+    unvec, vec)
 from forest_benchmarking_tpu_torch.utils import all_traceless_pauli_strings
 
 __all__ = ["state_to_density", "pgdb_a_row_pair",
@@ -91,24 +109,189 @@ def pgdb_a_row_pair(in_mat: np.ndarray, op: np.ndarray,
             np.kron(in_mat, proj_minus.T).T.reshape(-1))
 
 
+def _mle_cost_grad(a: torch.Tensor):
+    """(cost, grad_cost) of the negative log-likelihood -sum n log(A vec E)
+    for (B, d^2, d^2) estimates E and (B, R) counts n: the shared core of
+    the PGDB and APG solvers. The products run in full float32 (the line
+    search and restart rules compare small cost differences)."""
+    cdtype = a.dtype
+
+    def probs(est):
+        with full_f32_matmul():
+            p = (vec(est)[..., 0] @ a.T).real
+        return p.clamp(min=1e-6)
+
+    def cost(est, n):
+        return -(n * torch.log(probs(est))).sum(-1)
+
+    def grad_cost(est, n):
+        eta = (n / probs(est)).to(cdtype)
+        with full_f32_matmul():
+            return unvec(-(eta @ a.conj()))
+
+    return cost, grad_cost
+
+
+def _warm_start_choi(a: torch.Tensor, n: torch.Tensor, dim: int, proj):
+    """The projection ``proj`` of the rescaled linear-inversion estimates
+    unvec(pinv(A) n): the warm start of both solvers. pinv(A) is computed
+    once for the batch."""
+    cdtype = a.dtype
+    with full_f32_matmul():
+        rho0 = unvec(n.to(cdtype) @ torch.linalg.pinv(a).T)
+    rho0 = (rho0 + dag(rho0)) / 2
+    tr = torch.diagonal(rho0, dim1=-2, dim2=-1).sum(-1).real
+    scale = dim / torch.where(tr.abs() < 1e-12, 1.0, tr)
+    return proj(rho0 * scale.to(cdtype)[:, None, None])
+
+
+def _start(a: torch.Tensor, n: torch.Tensor, dim: int, proj, warm_start: bool):
+    if warm_start:
+        return _warm_start_choi(a, n, dim, proj)
+    d2 = dim * dim
+    eye = torch.eye(d2, dtype=a.dtype, device=a.device) / dim
+    return eye.expand(n.shape[0], d2, d2).clone()
+
+
+def _backtrack(cost, est, update, gradient, old_cost, n, gamma: float):
+    """Per-problem backtracking line search of PGDB: halve the step while
+    the cost exceeds the Armijo line and the step is at least 1e-15.
+    Returns (alpha, new_cost)."""
+    change = gamma * (update.conj() * gradient).sum(dim=(-2, -1)).real
+    new_cost = cost(est + update, n)
+    alpha = torch.ones_like(old_cost)
+    going = torch.nonzero((new_cost > old_cost + change)
+                          & (alpha >= 1e-15)).squeeze(1)
+    while going.numel():
+        alpha[going] = 0.5 * alpha[going]
+        change[going] = 0.5 * change[going]
+        new_cost[going] = cost(est[going] + alpha[going, None, None]
+                               * update[going], n[going])
+        going = going[(new_cost[going] > old_cost[going] + change[going])
+                      & (alpha[going] >= 1e-15)]
+    return alpha, new_cost
+
+
+def _pgdb_kernel(a: torch.Tensor, n: torch.Tensor, dim: int,
+                 trace_preserving: bool, stop_tol: float, maxiter: int,
+                 dyk_tol: float, dyk_iters: int, cp_method: str = "eigh",
+                 ns_iters: int = 24, warm_start: bool = False):
+    """Projected gradient descent with backtracking [PGD], batch-first.
+
+    Starts from I/d (or, with ``warm_start``, from the CPTP projection of
+    the linear-inversion estimate), steps by 1/mu = 2 d^2 / 3 into the
+    Dykstra projection, backtracks with gamma = 0.3, and stops a problem
+    once its cost decrease falls below ``stop_tol`` or after ``maxiter``
+    iterations. Returns (estimates (B, d^2, d^2), iterations (B,))."""
+    cost, grad_cost = _mle_cost_grad(a)
+    n = n.to(a.real.dtype)
+    mu = 3.0 / (2 * dim ** 2)
+    gamma = 0.3
+    proj = functools.partial(
+        proj_choi_to_physical, make_trace_preserving=trace_preserving,
+        tol=dyk_tol, max_iters=dyk_iters, cp_method=cp_method,
+        ns_iters=ns_iters)
+    est = _start(a, n, dim, proj, warm_start)
+    old_cost = cost(est, n)
+    its = torch.zeros(n.shape[0], dtype=torch.int32, device=n.device)
+    active = torch.arange(n.shape[0] if maxiter > 0 else 0, device=n.device)
+    while active.numel():
+        e, nn, oc = est[active], n[active], old_cost[active]
+        gradient = grad_cost(e, nn)
+        update = proj(e - gradient / mu) - e
+        alpha, new_cost = _backtrack(cost, e, update, gradient, oc, nn, gamma)
+        est[active] = e + alpha.to(e.dtype)[:, None, None] * update
+        old_cost[active] = new_cost
+        its[active] += 1
+        active = active[(oc - new_cost >= stop_tol) & (its[active] < maxiter)]
+    return est, its
+
+
+def _apg_kernel(a: torch.Tensor, n: torch.Tensor, dim: int,
+                trace_preserving: bool, stop_tol: float, maxiter: int,
+                dyk_tol: float, dyk_iters: int, cp_method: str = "eigh",
+                ns_iters: int = 24, loop_dyk_iters: Optional[int] = None,
+                warm_start: bool = False):
+    """Accelerated projected gradient (FISTA with O'Donoghue-Candes function
+    restart) [APG-QPT], batch-first.
+
+    Same cost, gradient and projection as PGDB, with Nesterov momentum and
+    the fixed step 1/mu = 2 d^2 / 3, no backtracking. A problem stops once
+    |cost decrease| falls below ``stop_tol`` or after ``maxiter`` steps.
+    ``loop_dyk_iters`` caps the Dykstra loop inside the descent (inexact
+    proximal steps); the result then gets one final projection at the full
+    ``dyk_iters``/``dyk_tol``. Returns (estimates (B, d^2, d^2),
+    iterations (B,))."""
+    cost, grad_cost = _mle_cost_grad(a)
+    n = n.to(a.real.dtype)
+    mu = 3.0 / (2 * dim ** 2)
+    proj_full = functools.partial(
+        proj_choi_to_physical, make_trace_preserving=trace_preserving,
+        tol=dyk_tol, max_iters=dyk_iters, cp_method=cp_method,
+        ns_iters=ns_iters)
+    proj = (proj_full if loop_dyk_iters is None else
+            functools.partial(proj_full, max_iters=loop_dyk_iters))
+    est = _start(a, n, dim, proj, warm_start)
+    prev = est.clone()
+    t = torch.ones(n.shape[0], dtype=n.dtype, device=n.device)
+    old_cost = cost(est, n)
+    its = torch.zeros(n.shape[0], dtype=torch.int32, device=n.device)
+    active = torch.arange(n.shape[0] if maxiter > 0 else 0, device=n.device)
+    while active.numel():
+        e, ep, tk, oc = est[active], prev[active], t[active], old_cost[active]
+        t_next = (1 + torch.sqrt(1 + 4 * tk * tk)) / 2
+        beta = ((tk - 1) / t_next).to(e.dtype)[:, None, None]
+        y = e + beta * (e - ep)
+        cand = proj(y - grad_cost(y, n[active]) / mu)
+        new_cost = cost(cand, n[active])
+        t[active] = torch.where(new_cost > oc, 1.0, t_next)
+        prev[active], est[active] = e, cand
+        old_cost[active] = new_cost
+        its[active] += 1
+        active = active[((oc - new_cost).abs() >= stop_tol)
+                        & (its[active] < maxiter)]
+    if loop_dyk_iters is not None:
+        est = proj_full(est)
+    return est, its
+
+
 def pgdb_process_estimate_batched(a: torch.Tensor, n: torch.Tensor, dim: int,
                                   trace_preserving: bool = True,
+                                  stop_tol: float = 1e-10, maxiter: int = 1000,
+                                  dyk_tol: float = 1e-4,
+                                  dyk_iters: int = 1000,
                                   cp_method: str = "eigh",
+                                  ns_iters: int = 24,
                                   method: str = "pgdb",
+                                  loop_dyk_iters: Optional[int] = None,
+                                  warm_start: bool = False,
                                   return_iters: bool = False,
-                                  fused_schedule: str = "parity") -> torch.Tensor:
+                                  fused_schedule: str = "parity"
+                                  ) -> Union[torch.Tensor,
+                                             Tuple[torch.Tensor, torch.Tensor]]:
     """Batched PGDB: (R, d^4) shared A-matrix, (B, R) counts -> (B, d^2, d^2).
 
-    Routes as the JAX function does. ``cp_method="pallas"`` (with
-    ``method="apg"``) selects the fused solver
-    :func:`~forest_benchmarking_tpu_torch.ops.lanes_apg.apg_fused`: the CUDA
-    kernel for tensors on the card, its plain PyTorch version on the CPU.
-    ``fused_schedule`` picks ``"parity"`` (strict <1e-6 f64 deviation from
-    the converged optimum) or ``"headline"`` (statistical equivalence); the
-    tuned schedules are for dim=4. The JAX function's tolerance and
-    iteration arguments (``stop_tol``, ``maxiter``, ``dyk_*``, ``ns_iters``,
-    ``loop_dyk_iters``, ``warm_start``) belong to the per-problem solvers,
-    which are not ported yet, and are not accepted here.
+    Routes and arguments as the JAX function's; the computation runs where
+    ``a`` and ``n`` lie.
+
+    - ``method="pgdb"`` (default): projected gradient with backtracking
+      (:func:`_pgdb_kernel`); ``method="apg"``: FISTA with function restart
+      (:func:`_apg_kernel`). Both project with Dykstra
+      (``dyk_tol``/``dyk_iters``), whose CP step is ``cp_method="eigh"``
+      (exact, ``torch.linalg.eigh``) or ``"ns"`` (Newton-Schulz,
+      ``ns_iters``), and stop per problem (``stop_tol``/``maxiter``).
+      ``warm_start`` starts from the projected linear-inversion estimate;
+      ``loop_dyk_iters`` (APG only) caps the Dykstra loop inside the descent;
+      ``return_iters`` (APG only) also returns the (B,) iteration counts.
+    - ``cp_method="pallas"`` (with ``method="apg"``) selects the fused solver
+      :func:`~forest_benchmarking_tpu_torch.ops.lanes_apg.apg_fused`: the CUDA
+      kernel for tensors on the card, its plain PyTorch version on the CPU.
+      Its schedule is static, so ``stop_tol``, ``maxiter``, ``dyk_*``,
+      ``ns_iters``, ``warm_start`` and ``loop_dyk_iters`` do not apply and
+      are ignored, as in the JAX package. ``fused_schedule`` picks
+      ``"parity"`` (strict <1e-6 f64 deviation from the converged optimum)
+      or ``"headline"`` (statistical equivalence); the tuned schedules are
+      for dim=4, and other dims run the default parity schedule.
     """
     if cp_method == "pallas":
         if method != "apg":
@@ -133,8 +316,24 @@ def pgdb_process_estimate_batched(a: torch.Tensor, n: torch.Tensor, dim: int,
                 f"for dim=4 (2Q); dim={dim} runs the conservative default "
                 f"schedule — pass fused_schedule='parity' explicitly")
         return apg_fused(a, n, dim=dim)
-    raise NotImplementedError(
-        f"method={method!r} with cp_method={cp_method!r} is not ported yet: "
-        "the per-problem PGDB/APG solvers come with ROADMAP.md queue 1, "
-        "item 5 (tomography.py process path: _pgdb_kernel, _apg_kernel, "
-        "proj_choi_to_physical). Use method='apg', cp_method='pallas'.")
+    if loop_dyk_iters is not None and loop_dyk_iters < 1:
+        raise ValueError(f"loop_dyk_iters must be >= 1, got {loop_dyk_iters}")
+    if cp_method not in ("eigh", "ns"):
+        raise ValueError(f"Unknown cp_method '{cp_method}'")
+    if n.device != a.device:
+        raise ValueError(f"counts on {n.device} but A on {a.device}")
+    args = (a, n, dim, trace_preserving, stop_tol, maxiter, dyk_tol,
+            dyk_iters, cp_method, ns_iters)
+    if method == "pgdb":
+        if loop_dyk_iters is not None:
+            raise ValueError("loop_dyk_iters is only supported with "
+                             "method='apg' (PGDB keeps the reference's exact "
+                             "in-loop projections)")
+        if return_iters:
+            raise ValueError("return_iters requires method='apg'")
+        return _pgdb_kernel(*args, warm_start=warm_start)[0]
+    if method != "apg":
+        raise ValueError(f"Unknown method '{method}'")
+    est, iters = _apg_kernel(*args, loop_dyk_iters=loop_dyk_iters,
+                             warm_start=warm_start)
+    return (est, iters) if return_iters else est

@@ -13,7 +13,10 @@ import torch
 from forest_benchmarking_tpu_torch import quantum_volume
 from forest_benchmarking_tpu_torch.benchmarks import (
     inputs_from_numpy, process_tomo_A_matrix, synth_process_datasets)
-from forest_benchmarking_tpu_torch.ops import lanes_apg, pallas_traj
+from forest_benchmarking_tpu_torch.ops import (
+    lanes_apg, pallas_eigh, pallas_traj)
+from forest_benchmarking_tpu_torch.ops.project_superoperators import (
+    proj_choi_to_completely_positive)
 from forest_benchmarking_tpu_torch.ops.random_operators import (
     haar_rand_unitary)
 from forest_benchmarking_tpu_torch.sim.noise import depolarizing_kraus_map
@@ -75,15 +78,89 @@ def test_launch_counter_counts_kernel_launches(case):
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(case, cuda):
     in32, in64, n = case
-    a1 = torch.tensor(process_tomo_A_matrix(1), dtype=torch.complex64,
-                      device=cuda)
-    with pytest.raises(NotImplementedError, match="dim=4"):
-        lanes_apg.apg_fused(a1, torch.full((2, 36), 1 / 18, device=cuda), 2)
+    z = torch.zeros((2, 9, 9), device=cuda)
+    with pytest.raises(NotImplementedError, match="dim=2 .* and dim=4"):
+        lanes_apg.apg_fused_kernel(torch.zeros((4, 81), device=cuda),
+                                   torch.zeros((4, 81), device=cuda),
+                                   torch.zeros((2, 4), device=cuda), z, z,
+                                   dim=3)
     with pytest.raises(TypeError, match="float32"):
         lanes_apg.apg_fused(in64.a, n.double(), 4, a_pinv=in64.a_pinv,
                             **lanes_apg.HEADLINE_TUNED_2Q)
     with pytest.raises(ValueError, match="at most"):
         lanes_apg.apg_fused(in32.a, n, 4, phases=((1, 1, 1),) * 9)
+
+
+@pytest.mark.parametrize("batch", [64, 100])
+def test_1q_kernel_against_plain_version(cuda, batch):
+    """dim=2 (sixteen problems per block; B = 100 leaves the last block a
+    quarter full), one launch.
+
+    One outer step: every problem within 1e-5 of the plain f32 solve.
+    Default schedule: at the median and 90th percentile over problems, the
+    kernel's max deviation from the plain f64 solve is at most twice the
+    plain f32 solve's + 1e-5; the TP violation is under 1e-3 everywhere
+    and over 1e-5 on at most 2 x + 2 as many problems as the plain f32
+    solve's. (The schedule amplifies f32 round-off on a few problems in a
+    thousand and leaves a few in ten thousand far from the physical set,
+    so maxima are no bar: chip_smoke.py phase 9.)"""
+    a = process_tomo_A_matrix(1)
+    in32 = inputs_from_numpy(a, np.zeros((1, 36)), device=cuda)
+    in64 = inputs_from_numpy(a, np.zeros((1, 36)), device=cuda,
+                             dtype=torch.float64)
+    gen = torch.Generator(device=cuda).manual_seed(batch)
+    n, _ = synth_process_datasets(gen, in32.a, 2, batch, 2000)
+    before = lanes_apg.apg_fused.launches
+    kern = lanes_apg.apg_fused(in32.a, n, 2, a_pinv=in32.a_pinv)
+    torch.cuda.synchronize()
+    assert lanes_apg.apg_fused.launches == before + 1
+    rho0 = lanes_apg.linear_inversion_start(in32.a_pinv, n, 2)
+    one = dict(phases=((1, 1, 1),))
+    step_k = lanes_apg.apg_fused_kernel(in32.ar, in32.ai, n, *rho0, dim=2,
+                                        **one)
+    step_p = lanes_apg.apg_fused_reference(in32.ar, in32.ai, n, *rho0, dim=2,
+                                           **one)
+    assert (torch.complex(*step_k) - torch.complex(*step_p)).abs().max() < 1e-5
+    plain32 = torch.complex(*lanes_apg.apg_fused_reference(
+        in32.ar, in32.ai, n, *rho0, dim=2))
+    rho0 = lanes_apg.linear_inversion_start(in64.a_pinv, n.double(), 2)
+    plain64 = torch.complex(*lanes_apg.apg_fused_reference(
+        in64.ar, in64.ai, n.double(), *rho0, dim=2))
+    q = torch.tensor([0.5, 0.9], dtype=torch.float64, device=cuda)
+
+    def dev(x):
+        return torch.quantile((x.to(plain64.dtype) - plain64).abs().amax(
+            dim=(1, 2)), q)
+
+    assert (dev(kern) <= 2 * dev(plain32) + 1e-5).all()
+
+    def tp(x):
+        pt = torch.diagonal(x.reshape(-1, 2, 2, 2, 2), dim1=2, dim2=4).sum(-1)
+        return (pt - torch.eye(2, device=cuda)).abs().amax(dim=(1, 2))
+
+    assert tp(kern).max().item() < 1e-3
+    assert (tp(kern) > 1e-5).sum() <= 2 * (tp(plain32) > 1e-5).sum() + 2
+
+
+@pytest.mark.parametrize("batch", [1, 64])
+def test_cp_project_kernel_against_eigh(cuda, batch):
+    """Six sweeps from V = I: within 1e-4 of the exact eigh projection in
+    f64 (the JAX package's f32 bar) and of the plain f32 version; one
+    launch. complex128 is refused."""
+    gen = torch.Generator(device=cuda).manual_seed(batch)
+    x = torch.randn((batch, 16, 16), generator=gen, device=cuda,
+                    dtype=torch.complex64)
+    h = (x + x.transpose(1, 2).conj()) / 2
+    before = pallas_eigh.cp_project_pallas.launches
+    kern = pallas_eigh.cp_project_pallas(h, sweeps=6)
+    torch.cuda.synchronize()
+    assert pallas_eigh.cp_project_pallas.launches == before + 1
+    exact = proj_choi_to_completely_positive(h.to(torch.complex128))
+    plain = pallas_eigh.cp_project_reference(h, 6)
+    assert (kern.to(torch.complex128) - exact).abs().max().item() < 1e-4
+    assert (kern - plain).abs().max().item() < 1e-4
+    with pytest.raises(TypeError, match="complex64"):
+        pallas_eigh.cp_project_pallas(h.to(torch.complex128))
 
 
 def qv_case(cuda, depth, circuits=16, n_traj=256):

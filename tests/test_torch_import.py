@@ -53,7 +53,8 @@ def test_port_imports_without_jax_package_or_toolchain():
                          check=True)
     info = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("benchmarks", "tomography", "kernels", "ops.calculational",
-                 "ops.lanes_apg", "ops.pallas_traj", "ops.random_operators",
+                 "ops.lanes_apg", "ops.pallas_eigh", "ops.pallas_traj",
+                 "ops.project_superoperators", "ops.random_operators",
                  "ops.superoperator_transformations", "quantum_volume",
                  "sim.noise", "sim.statevector", "utils"):
         assert f"forest_benchmarking_tpu_torch.{name}" in info["names"]

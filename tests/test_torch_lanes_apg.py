@@ -1,9 +1,10 @@
 """The port's fused APG solver (plain PyTorch version) against the JAX
-package's ``ops/lanes_apg.py`` and the numpy oracles, in float64.
+package's ``ops/lanes_apg.py`` and the numpy oracles, in float64, at dim=4
+(headline schedule) and dim=2 (default schedule); and the kernel sources'
+tables and the loader's library names.
 
-The headline-schedule comparison lives here and the parity-schedule one in
-test_torch_slice.py, so that their JAX CPU compiles run on different
-workers.
+The dim=4 parity-schedule comparison lives in test_torch_slice.py, so that
+the JAX CPU compiles run on different workers.
 """
 import re
 
@@ -15,7 +16,7 @@ import torch
 
 from forest_benchmarking_tpu.benchmarks import synth_process_datasets
 from forest_benchmarking_tpu.ops import lanes_apg as jax_lanes
-from forest_benchmarking_tpu_torch import kernels
+from forest_benchmarking_tpu_torch import kernels, tomography
 from forest_benchmarking_tpu_torch.benchmarks import (
     inputs_from_numpy, process_tomo_A_matrix)
 from forest_benchmarking_tpu_torch.ops import lanes_apg
@@ -147,19 +148,78 @@ def test_schedule_forms_not_carried_raise():
 
 
 def test_cuda_source_tables_match_python():
-    """The kernel's round-robin pair table and schedule width equal the
-    Python side's (the kernel runs only on the card; its source can be read
-    anywhere)."""
+    """The kernel's round-robin pair tables (n = 16 for dim=4, n = 4 for
+    dim=2) and schedule width equal the Python side's (the kernel runs only
+    on the card; its source can be read anywhere)."""
     src = (kernels.CSRC / "apg_fused.cu").read_text()
-    body = src.split("c_pairs[NROUNDS][NPAIRS][2] = {", 1)[1].split("};", 1)[0]
-    pairs = [tuple(map(int, m)) for m in re.findall(r"\{(\d+), (\d+)\}", body)]
-    want = [p for rnd in lanes_apg._round_robin_pairs(16) for p in rnd]
-    assert pairs == want
+    for n in (16, 4):
+        decl = f"c_pairs{n}[{n - 1}][{n // 2}][2] = {{"
+        body = src.split(decl, 1)[1].split("};", 1)[0]
+        pairs = [tuple(map(int, m))
+                 for m in re.findall(r"\{(\d+), (\d+)\}", body)]
+        want = [p for rnd in lanes_apg._round_robin_pairs(n) for p in rnd]
+        assert pairs == want, n
     width = int(re.search(r"#define APG_MAX_PHASES (\d+)", src).group(1))
     assert width == kernels.MAX_PHASES
     fields = [f[0] for f in kernels.ApgSchedule._fields_]
     struct = src.split("struct ApgSchedule {", 1)[1].split("};", 1)[0]
     assert re.findall(r"(\w+)(?:\[APG_MAX_PHASES\])?[,;]", struct) == fields
+
+
+def test_library_name_follows_included_headers(tmp_path):
+    """A library is named by the source and every file under ``csrc/`` it
+    includes, so an edited header cannot leave a stale library loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "apg_fused.cu").write_bytes(
+        (kernels.CSRC / "apg_fused.cu").read_bytes())
+    assert (kernels._lib_paths(csrc, tmp_path)["apg_fused"].name
+            == kernels._lib_paths()["apg_fused"].name)
+    (csrc / "sweep.cuh").write_text("// shared sweep v1\n")
+    (csrc / "inner.cuh").write_text("// inner v1\n")
+    (csrc / "unused.cuh").write_text("// not included\n")
+    (csrc / "k.cu").write_text('#include <cuda_runtime.h>\n'
+                               '#include "sweep.cuh"\n')
+
+    def name():
+        return kernels._lib_paths(csrc, tmp_path)["k"].name
+
+    first = name()
+    (csrc / "unused.cuh").write_text("// edited, still not included\n")
+    assert name() == first
+    (csrc / "sweep.cuh").write_text("// shared sweep v2\n")
+    second = name()
+    assert second != first
+    (csrc / "sweep.cuh").write_text('#include "inner.cuh"\n')
+    third = name()
+    (csrc / "inner.cuh").write_text("// inner v2\n")
+    assert len({first, second, third, name()}) == 4
+
+
+@pytest.fixture(scope="module")
+def fused_1q_case():
+    """B = 8 one-qubit problems at 2000 shots, solved once by the JAX
+    package with the default (parity) schedule."""
+    a = process_tomo_A_matrix(1)
+    n, _ = synth_process_datasets(jax.random.PRNGKey(23), jnp.asarray(a), 2, 8,
+                                  2000, dtype=jnp.float64)
+    want = np.asarray(jax_lanes.apg_fused(jnp.asarray(a), n, dim=2,
+                                          use_pallas=False))
+    return a, np.asarray(n), want
+
+
+def test_apg_fused_1q_matches_jax(fused_1q_case):
+    """dim=2, default schedule (``PARITY_PHASES``, mu = 3/8): the plain port
+    against JAX ``apg_fused(dim=2, use_pallas=False)`` in f64 within 1e-9;
+    the ``cp_method="pallas"`` route at dim=2 is the same call."""
+    a, n, want = fused_1q_case
+    inp = inputs_from_numpy(a, n, device="cpu", dtype=torch.float64)
+    got = lanes_apg.apg_fused(inp.a, inp.n, 2)
+    assert got.dtype == torch.complex128 and got.shape == (8, 4, 4)
+    assert np.max(np.abs(got.numpy() - want)) <= 1e-9
+    via_route = tomography.pgdb_process_estimate_batched(
+        inp.a, inp.n, dim=2, method="apg", cp_method="pallas")
+    assert torch.equal(via_route, got)
 
 
 @pytest.mark.parametrize("schedule,passes", [("HEADLINE_TUNED_2Q", 16),

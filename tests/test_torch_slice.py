@@ -1,6 +1,7 @@
 """Slice 1 end to end: the port's ``tomography.pgdb_process_estimate_batched``
 fused route against the JAX package's on the same counts, in float64, with
-the parity schedule (the headline one is in test_torch_lanes_apg.py)."""
+the parity schedule (the headline one is in test_torch_lanes_apg.py); and
+its other routes at dim=2."""
 import numpy as np
 import pytest
 import jax
@@ -130,28 +131,55 @@ def test_headline_rejected_for_non_2q():
                                                  fused_schedule="headline")
 
 
+@pytest.fixture(scope="module")
+def one_qubit_case():
+    """B = 3 one-qubit problems at 2000 shots, as numpy arrays."""
+    a = process_tomo_A_matrix(1)
+    n, _ = synth_process_datasets(jax.random.PRNGKey(34), jnp.asarray(a), 2,
+                                  3, 2000, dtype=jnp.float64)
+    return a, np.asarray(n)
+
+
 @pytest.mark.parametrize("method, cp_method", [("pgdb", "eigh"),
                                                ("apg", "eigh"), ("apg", "ns")])
-def test_unported_routes_name_the_roadmap_item(method, cp_method):
-    a = torch.tensor(process_tomo_A_matrix(1))
-    n = torch.full((1, 36), 1 / 18, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
-        tomography.pgdb_process_estimate_batched(a, n, dim=2, method=method,
-                                                 cp_method=cp_method)
+def test_unported_routes_name_the_roadmap_item(one_qubit_case, method,
+                                               cp_method):
+    """The per-problem routes (which raised before they were ported) match
+    the JAX function within 1e-10 in f64 (more cases in
+    test_torch_process_routes.py)."""
+    a, n = one_qubit_case
+    kw = dict(dim=2, method=method, cp_method=cp_method)
+    want = np.asarray(jax_tomo.pgdb_process_estimate_batched(
+        jnp.asarray(a), jnp.asarray(n), **kw))
+    got = tomography.pgdb_process_estimate_batched(torch.tensor(a),
+                                                   torch.tensor(n), **kw)
+    assert np.abs(got.numpy() - want).max() <= 1e-10
 
 
-@pytest.mark.parametrize("knob", ["stop_tol", "maxiter", "dyk_tol",
-                                  "dyk_iters", "ns_iters", "loop_dyk_iters",
-                                  "warm_start"])
-def test_per_problem_solver_knobs_are_not_accepted(knob):
-    """The fused route's schedule is static: the JAX function's knobs of
-    the per-problem solvers would be ignored there, so the port refuses
-    them."""
-    a = torch.tensor(process_tomo_A_matrix(1))
-    n = torch.full((1, 36), 1 / 18, dtype=torch.float64)
-    with pytest.raises(TypeError, match=knob):
-        tomography.pgdb_process_estimate_batched(
-            a, n, dim=2, method="apg", cp_method="pallas", **{knob: 1})
+@pytest.fixture(scope="module")
+def fused_1q(one_qubit_case):
+    """The port's fused route at dim=2 with no per-problem knob."""
+    a, n = one_qubit_case
+    inp = inputs_from_numpy(a, n, device="cpu", dtype=torch.float64)
+    return inp, tomography.pgdb_process_estimate_batched(
+        inp.a, inp.n, dim=2, method="apg", cp_method="pallas")
+
+
+# a value of each per-problem knob that would change a per-problem solve
+KNOBS = dict(stop_tol=1.0, maxiter=1, dyk_tol=1.0, dyk_iters=1, ns_iters=1,
+             loop_dyk_iters=1, warm_start=True)
+
+
+@pytest.mark.parametrize("knob", list(KNOBS))
+def test_per_problem_solver_knobs_are_not_accepted(fused_1q, knob):
+    """The fused route's schedule is static: the per-problem solvers' knobs
+    are accepted and ignored there, as in the JAX package, so each leaves
+    the estimate unchanged bit for bit."""
+    inp, want = fused_1q
+    got = tomography.pgdb_process_estimate_batched(
+        inp.a, inp.n, dim=2, method="apg", cp_method="pallas",
+        **{knob: KNOBS[knob]})
+    assert torch.equal(got, want)
 
 
 def test_port_slice_on_its_own_data():
