@@ -6,18 +6,24 @@ projection.
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--problems-per-block P]
+
+``--problems-per-block`` (2 or 4; default ``kernels.PROBLEMS_PER_BLOCK``)
+builds the dim = 4 fused kernel with P problems per thread block, to
+compare the two layouts on the card.
 
 Phases, each of which must pass:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
-2. build: compile the CUDA kernels from the sources in the checkout;
-3. kernel against plain version, both fused schedules, at B = 256 and at
-   the main path's B = 16384: the kernel's f32 result, the plain PyTorch
-   version's f32 result and its f64 result, all on the card, from the same
-   counts and warm start. Bar: the kernel's max elementwise deviation from
-   f64 is at most 2 x the plain f32 deviation + 1e-5, and its
-   trace-preserving (TP) violation is under 1e-5;
+2. build: compile the CUDA kernels from the sources in the checkout; print
+   each kernel's registers and spills;
+3. kernel against plain version, both fused schedules, at B = 256, at
+   B = 253 (not a multiple of the problems per block: the last block runs
+   empty slots) and at the main path's B = 16384: the kernel's f32 result,
+   the plain PyTorch version's f32 result and its f64 result, all on the
+   card, from the same counts and warm start. Bar: the kernel's max
+   elementwise deviation from f64 is at most 2 x the plain f32 deviation +
+   1e-5, and its trace-preserving (TP) violation is under 1e-5;
 4. the main path at full size: A from ``process_tomo_A_matrix(2)``,
    B = 16384 problems, 2000 shots per setting, through
    ``tomography.pgdb_process_estimate_batched(method="apg",
@@ -28,7 +34,14 @@ Phases, each of which must pass:
 5. timing with CUDA events (one warm-up, median of 3) at B = 16384 of the
    warm start, of the kernel and of the plain version of the solve (both
    from the same warm start); the B = 16384 check of phase 3 uses the
-   outputs of these timed runs;
+   outputs of these timed runs. Beside the kernel time: the problems per
+   block, the bytes of A it reads from L2 per solve
+   (``apg_fused_l2_bytes_per_solve``) and the L2 rate they imply, and the
+   one-problem-per-block design's times for comparison (text). Then the
+   split of the kernel's time: the kernel timed on a schedule of 31 passes
+   over A and no projection, and on two of 20 Dykstra iterations (1 and 3
+   sweeps) and one pass, give the time of a pass, of an iteration and of a
+   further sweep, and so each schedule's time in passes and projections;
 6. the quantum-volume kernels against their plain versions on the same
    inputs, at depth 8 and T = 256, depth 7 (odd) and T = 256, and depth 8
    and T = 500 (a last tile of 4 of its 8 trajectories), C = 16 circuits,
@@ -117,6 +130,7 @@ and 99th percentile over problems; CP projection, the largest
 is ``{"ok": true, ...}``. Exits non-zero,
 printing no result, if CUDA is unavailable or any phase fails.
 """
+import argparse
 import contextlib
 import json
 import math
@@ -132,6 +146,7 @@ SEED = 2024
 BATCH = 16384
 SHOTS = 2000
 CHECK_BATCH = 256
+TAIL_BATCH = 253       # not a multiple of 2 or 4 problems per block
 SCHEDULES = ("headline", "parity")
 QV_DEPTH = 8
 QV_CIRCUITS = 1600
@@ -144,6 +159,9 @@ ROUTE_BATCH = 256      # problems of each per-problem route in phase 11
 CP_SWEEPS = 6
 PEAK_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
+# the dim = 4 kernel with one problem per block, B = 16384, headline /
+# parity schedule (PERF.md, NVIDIA H100 80GB HBM3 at 700 W)
+ONE_PER_BLOCK_MS = (64.658, 584.640)
 
 
 class SmokeFailure(RuntimeError):
@@ -331,14 +349,22 @@ def traj_agreement(kern: torch.Tensor, plain: torch.Tensor):
             col.max().item(), (kern.sum(1) - 1).abs().max().item())
 
 
-def main() -> int:
+def main(argv=None) -> int:
     t_start = time.perf_counter()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--problems-per-block", type=int, choices=(2, 4),
+                        help="problems per block of the dim = 4 fused "
+                             "kernel (default: the package's)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
     from forest_benchmarking_tpu_torch import (
         kernels, quantum_volume, tomography)
+    if args.problems_per_block is not None:
+        kernels.PROBLEMS_PER_BLOCK = args.problems_per_block
+    ppb = kernels.PROBLEMS_PER_BLOCK
     from forest_benchmarking_tpu_torch.benchmarks import (
         inputs_from_numpy, process_tomo_A_matrix, synth_process_datasets)
     from forest_benchmarking_tpu_torch.ops import (
@@ -364,9 +390,10 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     kernels.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s")
+    print(f"build: {time.perf_counter() - t0:.2f} s; dim = 4 fused kernel "
+          f"with {ppb} problems per block")
     for line in kernels.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill")):
             print(f"  ptxas: {line.strip()}")
 
     a_np = process_tomo_A_matrix(2)
@@ -375,12 +402,17 @@ def main() -> int:
                              dtype=torch.float64)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    # 3. kernel against plain version at B = 256 (B = 16384 in phase 5)
-    n_chk, _ = synth_process_datasets(gen, in32.a, 4, CHECK_BATCH, SHOTS)
-    for name in SCHEDULES:
-        cfg = configs[name]
-        kern = lanes_apg.apg_fused(in32.a, n_chk, 4, a_pinv=in32.a_pinv, **cfg)
-        against_plain(lanes_apg, name, kern, in32, in64, n_chk, cfg)
+    # 3. kernel against plain version at B = 256 and at a batch that leaves
+    # the last block part empty (B = 16384 in phase 5); the tail batch has
+    # its own generator, so that the later phases draw what they drew before
+    for batch, g_chk in ((CHECK_BATCH, gen), (TAIL_BATCH, torch.Generator(
+            device=dev).manual_seed(SEED + 4))):
+        n_chk, _ = synth_process_datasets(g_chk, in32.a, 4, batch, SHOTS)
+        for name in SCHEDULES:
+            cfg = configs[name]
+            kern = lanes_apg.apg_fused(in32.a, n_chk, 4, a_pinv=in32.a_pinv,
+                                       **cfg)
+            against_plain(lanes_apg, name, kern, in32, in64, n_chk, cfg)
 
     # 4. the main path at full size
     a = torch.tensor(a_np, dtype=torch.complex64, device=dev)
@@ -415,19 +447,61 @@ def main() -> int:
         lambda: lanes_apg.linear_inversion_start(in32.a_pinv, n, 4))
     print(f"timing warm start: B={BATCH} {ms_w:.3f} ms on {card}")
     timing, max_abs_err = {}, 0.0
-    for name in SCHEDULES:
+    for name, ms_one in zip(SCHEDULES, ONE_PER_BLOCK_MS):
         cfg = configs[name]
         ms_k, kern = cuda_ms(lambda: lanes_apg.apg_fused_kernel(
             in32.ar, in32.ai, n, *rho0, dim=4, **cfg))
         ms_p, plain32 = cuda_ms(lambda: lanes_apg.apg_fused_reference(
             in32.ar, in32.ai, n, *rho0, dim=4, **cfg))
         timing[name] = (ms_k, ms_p)
+        l2 = lanes_apg.apg_fused_l2_bytes_per_solve(a_np.shape[0], 4, ppb,
+                                                    **cfg)
         print(f"timing {name}: B={BATCH} kernel {ms_k:.3f} ms "
               f"({BATCH / ms_k * 1e3:.0f} solves/s), plain {ms_p:.3f} ms "
               f"({BATCH / ms_p * 1e3:.0f} solves/s) on {card}")
+        print(f"  {ppb} problems per block: A read from L2 "
+              f"{l2 / 1e6:.3f} MB per solve, {BATCH * l2 / ms_k / 1e9:.3f} "
+              f"TB/s at the kernel time; one problem per block took "
+              f"{ms_one:.3f} ms (PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
         max_abs_err = max(max_abs_err, against_plain(
             lanes_apg, name, torch.complex(*kern), in32, in64, n, cfg,
             plain32=torch.complex(*plain32)))
+
+    # where the kernel's time goes: a schedule of passes over A alone (no
+    # projection) and two of projections alone (one pass, the first cost)
+    mu = configs["headline"]["mu"]
+    split = {}
+    for key, cfg in (("passes", dict(phases=((10, 0, 1),), init_iters=0,
+                                     final_iters=0)),
+                     ("dykstra1", dict(phases=(), init_iters=0,
+                                       final_iters=20, final_sweeps=1)),
+                     ("dykstra3", dict(phases=(), init_iters=0,
+                                       final_iters=20, final_sweeps=3))):
+        split[key], _ = cuda_ms(lambda: lanes_apg.apg_fused_kernel(
+            in32.ar, in32.ai, n, *rho0, dim=4, mu=mu, **cfg))
+    ms_pass = split["passes"] / 31
+    ms_iter = (split["dykstra1"] - ms_pass) / 20
+    ms_sweep = (split["dykstra3"] - split["dykstra1"]) / 40
+    a_bytes = 2 * a_np.shape[0] * 256 * 4
+    print(f"split: B={BATCH} one pass over A {ms_pass:.3f} ms "
+          f"({BATCH * a_bytes / ppb / ms_pass / 1e9:.3f} TB/s of A from L2), "
+          f"one Dykstra iteration of 1 sweep {ms_iter:.3f} ms, each further "
+          f"sweep {ms_sweep:.3f} ms (schedules of 31 passes: "
+          f"{split['passes']:.3f} ms; 20 iterations at 1 and 3 sweeps: "
+          f"{split['dykstra1']:.3f} / {split['dykstra3']:.3f} ms)")
+    for name in SCHEDULES:
+        cfg = configs[name]
+        passes = lanes_apg._a_passes(cfg["phases"])
+        steps = [(cfg["init_iters"], cfg["init_sweeps"]),
+                 (cfg["final_iters"], cfg["final_sweeps"])] + [
+                     (outer * ld, sw) for outer, ld, sw in cfg["phases"]]
+        proj = sum(it * (ms_iter + (sw - 1) * ms_sweep) for it, sw in steps)
+        print(f"split {name}: {passes} passes {passes * ms_pass:.3f} ms + "
+              f"{sum(it for it, _ in steps)} Dykstra iterations "
+              f"({sum(it * sw for it, sw in steps)} sweeps) {proj:.3f} ms = "
+              f"{passes * ms_pass + proj:.3f} ms against {timing[name][0]:.3f} "
+              f"ms measured; passes "
+              f"{100 * passes * ms_pass / (passes * ms_pass + proj):.1f}%")
 
     apg_bounds = {name: bound_ms(
         BATCH * lanes_apg.apg_fused_flops_per_solve(a_np.shape[0],

@@ -25,27 +25,34 @@
 // V, run cyclic-Jacobi sweeps, clip negative eigenvalues, reconstruct) and
 // the TP projection; V carries across Dykstra iterations and outer steps.
 //
-// Layout: 256 threads per block. A problem's Choi entries (i, j), n = D^2
-// of each, are held one per thread, by a group of n^2 threads: at D = 4 one
-// group (one problem) per block, at D = 2 sixteen groups of 16 threads
-// (sixteen problems) per block. The schedule is static, so every problem of
-// a block runs the same steps and the block-wide __syncthreads points serve
-// every group. The elementwise APG/Dykstra state (est, prev, the two
-// Dykstra corrections, the Dykstra iterate) lives in the thread's registers;
-// the matrices that threads exchange (operand, H, HV, M, V) and the counts
-// and eta vectors live in shared memory. The TPU kernel's pair-layout
-// permutations, fences and vreg tiling are not carried: a Jacobi round
-// rotates the pairs (p, q) of `_round_robin_pairs` in place.
+// Layout: a problem's Choi entries (i, j), n = D^2 of each, are held one per
+// thread, by a group of n^2 threads. At D = 4 a block is P groups of 256
+// threads (P problems, P = APG_PROBLEMS_PER_BLOCK); at D = 2 it is sixteen
+// groups of 16 threads (sixteen problems) in 256 threads. The schedule is
+// static, so every problem of a block runs the same steps and the
+// block-wide __syncthreads points serve every group. The elementwise
+// APG/Dykstra state (est, prev, the two Dykstra corrections, the Dykstra
+// iterate) lives in the thread's registers; the matrices that threads
+// exchange (operand, H, HV, M, V) and the counts and eta vectors live in
+// shared memory. The TPU kernel's pair-layout permutations, fences and vreg
+// tiling are not carried: a Jacobi round rotates the pairs (p, q) of
+// `_round_robin_pairs` in place.
 //
 // What bounds it on an H100:
-// - D = 4: L2 bytes of A. Both A contractions are computed here, by hand:
-//   p = Re(A x) with one warp per row (lanes read the row coalesced, shuffle
-//   reduction), and A^T eta with thread j summing column j over the rows.
-//   The two f32 planes of A (1080 x 256) are 2.2 MB, shared by all blocks
-//   and resident in the 50 MB L2, and every block re-reads them on each
-//   pass: 1 pass for the first cost plus 3 per outer step (p and A^T eta at
-//   y, p for the cost of the candidate). Headline schedule: 16 passes =
-//   35 MB from L2 per solve; parity schedule: 133 passes = 294 MB per solve.
+// - D = 4: L2 bytes of A. Both A contractions are computed here, by hand,
+//   in FP32 FMAs. The two f32 planes of A (1080 x 256) are 2.2 MB, and the
+//   wrapper also passes A^T (256 x 1080, 2.2 MB more); both are shared by
+//   all blocks and resident in the 50 MB L2. A block reads one of them on
+//   each pass: 1 pass for the first cost plus 3 per outer step (p and
+//   A^T eta at y, p for the cost of the candidate), 16 passes on the
+//   headline schedule and 133 on parity. Every element a block loads serves
+//   all P of its problems, so a solve moves 16 x 2.2 MB / P (headline) from
+//   L2. The p pass (a_pass_2q) reads A^T[k, r] coalesced over the rows r
+//   and the P operands x_g[k] as one broadcast shared-memory load; the
+//   A^T eta pass (grad_2q) reads A[r, j] coalesced over the columns j and
+//   the P values eta_g[r] as one broadcast load. Neither order of summation
+//   depends on which problems share the block, so a problem's estimate does
+//   not depend on its block-mates.
 // - D = 2: A is 36 x 16 (4.6 KB in two planes), so each block stages it in
 //   shared memory once (rows padded to 17 floats: the p pass, where thread l
 //   takes rows l, l + 16, ..., reads without bank conflicts) and no pass
@@ -53,7 +60,7 @@
 //   barriers between the steps of every Dykstra iteration.
 // - Both: the serial Jacobi rounds, n - 1 per sweep, each three steps
 //   (coefficients, column rotations, row rotations) with a __syncthreads
-//   between them. Many resident blocks per SM hide that latency.
+//   between them. Resident blocks and problems per SM hide that latency.
 //
 // cp_project: one block of 256 threads per 16x16 matrix, thread t owning
 // entry (t / 16, t % 16); H is read as given (complex64, interleaved), V = I,
@@ -64,6 +71,11 @@
 #include <cuda_runtime.h>
 
 #define APG_MAX_PHASES 8  // must match MAX_PHASES in kernels/__init__.py
+// Problems per block at D = 4: 2 or 4. The build passes
+// -DAPG_PROBLEMS_PER_BLOCK=<kernels.PROBLEMS_PER_BLOCK>.
+#ifndef APG_PROBLEMS_PER_BLOCK
+#define APG_PROBLEMS_PER_BLOCK 4
+#endif
 
 struct ApgSchedule {
   int n_phases;
@@ -77,7 +89,6 @@ struct ApgSchedule {
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr float EPS_ROT = 1e-18f;  // f32 rotation threshold of _rotation_coeffs
 constexpr float EPS_P = 1e-6f;     // probability clamp
 constexpr int PAD_1Q = 17;         // row stride of A in shared memory at D = 2
@@ -90,7 +101,7 @@ struct Dims {
   static constexpr int NPAIRS = N / 2;
   static constexpr int NROUNDS = N - 1;
   static constexpr int HALF = NN / 2;       // (row, pair) tasks of a rotation
-  static constexpr int P = THREADS / NN;    // problems per block
+  static constexpr int P = THREADS / NN;    // problems per 256 threads
 };
 
 // _round_robin_pairs(16): 15 rounds of 8 disjoint pairs (p < q).
@@ -172,11 +183,27 @@ __device__ __forceinline__ void rotation_coeffs(float apq_r, float apq_i,
   s = small ? 0.f : t * cc;
 }
 
+// The barriers of the shared device code below (Jacobi, warm CP, TP,
+// Dykstra), whose threads exchange data only within one problem's group.
+// BlockSync, the default, is __syncthreads. GroupSync is the named barrier
+// `id` of the group's 256 threads (D = 4), so that the groups of a block
+// wait only for their own threads between two block-wide passes.
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+struct GroupSync {
+  int id;
+  __device__ __forceinline__ void operator()() const {
+    asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+  }
+};
+
 // `sweeps` cyclic-Jacobi sweeps: M <- G^dag M G and V <- V G, round by round.
 // l is the thread's entry within its problem's group of NN threads.
-template <int D>
+template <int D, class Sync = BlockSync>
 __device__ void jacobi_sweeps(Eig<D>& s, const Pairs<D>& pairs, int sweeps,
-                              int l) {
+                              int l, Sync sync = Sync()) {
   using C = Dims<D>;
   constexpr int N = C::N;
   for (int sw = 0; sw < sweeps; ++sw) {
@@ -191,7 +218,7 @@ __device__ void jacobi_sweeps(Eig<D>& s, const Pairs<D>& pairs, int sweeps,
         s.rot[2][l] = er;
         s.rot[3][l] = ei;
       }
-      __syncthreads();
+      sync();
       {
         // columns p, q of M (first half of the group) and of V (second half):
         // p <- c p - s conj(e) q,  q <- s e p + c q
@@ -211,7 +238,7 @@ __device__ void jacobi_sweeps(Eig<D>& s, const Pairs<D>& pairs, int sweeps,
         xr[row * N + q] = sn * tpr + c * qr;
         xi[row * N + q] = sn * tpi + c * qi;
       }
-      __syncthreads();
+      sync();
       if (l < C::HALF) {
         // rows p, q of M: p <- c p - s e q,  q <- s conj(e) p + c q
         const unsigned u = static_cast<unsigned>(l);
@@ -228,7 +255,7 @@ __device__ void jacobi_sweeps(Eig<D>& s, const Pairs<D>& pairs, int sweeps,
         s.mr[q * N + col] = sn * tpr + c * qr;
         s.mi[q * N + col] = sn * tpi + c * qi;
       }
-      __syncthreads();
+      sync();
     }
   }
 }
@@ -253,15 +280,15 @@ __device__ __forceinline__ void pos_part_entry(const Eig<D>& s, int l,
 
 // CP projection of the matrix in s.sr/s.si (written and synced by the
 // caller) in the carried eigenbasis; this thread's entry of the positive part.
-template <int D>
+template <int D, class Sync = BlockSync>
 __device__ void warm_cp(Mats<D>& s, const Pairs<D>& pairs, int sweeps, int l,
-                        float& pos_r, float& pos_i) {
+                        float& pos_r, float& pos_i, Sync sync = Sync()) {
   constexpr int N = Dims<D>::N;
   const unsigned u = static_cast<unsigned>(l);
   const int i = u / N, j = u % N;
   s.hr[l] = (s.sr[i * N + j] + s.sr[j * N + i]) / 2.f;
   s.hi[l] = (s.si[i * N + j] - s.si[j * N + i]) / 2.f;
-  __syncthreads();
+  sync();
   // T = H V
   float ar = s.hr[i * N] * s.e.vr[j] - s.hi[i * N] * s.e.vi[j];
   float ai = s.hr[i * N] * s.e.vi[j] + s.hi[i * N] * s.e.vr[j];
@@ -273,7 +300,7 @@ __device__ void warm_cp(Mats<D>& s, const Pairs<D>& pairs, int sweeps, int l,
   }
   s.tr[l] = ar;
   s.ti[l] = ai;
-  __syncthreads();
+  sync();
   // M = V^dag T
   ar = s.e.vr[i] * s.tr[j] + s.e.vi[i] * s.ti[j];
   ai = s.e.vr[i] * s.ti[j] - s.e.vi[i] * s.tr[j];
@@ -285,20 +312,20 @@ __device__ void warm_cp(Mats<D>& s, const Pairs<D>& pairs, int sweeps, int l,
   }
   s.e.mr[l] = ar;
   s.e.mi[l] = ai;
-  __syncthreads();
-  jacobi_sweeps<D>(s.e, pairs, sweeps, l);
+  sync();
+  jacobi_sweeps<D>(s.e, pairs, sweeps, l, sync);
   pos_part_entry<D>(s.e, l, pos_r, pos_i);
 }
 
 // TP projection X - kron(Tr_out(X) - I, I) / D of the matrix whose entry l
 // is (xr, xi).
-template <int D>
+template <int D, class Sync = BlockSync>
 __device__ void proj_tp(Mats<D>& s, int l, float xr, float xi, float& out_r,
-                        float& out_i) {
+                        float& out_i, Sync sync = Sync()) {
   constexpr int N = Dims<D>::N;
   s.sr[l] = xr;
   s.si[l] = xi;
-  __syncthreads();
+  sync();
   if (l < D * D) {
     const unsigned u = static_cast<unsigned>(l);
     const int a = u / D, c = u % D;
@@ -310,7 +337,7 @@ __device__ void proj_tp(Mats<D>& s, int l, float xr, float xi, float& out_r,
     s.ptr[l] = accr;
     s.pti[l] = acci;
   }
-  __syncthreads();
+  sync();
   const unsigned u = static_cast<unsigned>(l);
   const unsigned i = u / N, j = u % N;
   const unsigned a = i / D, b = i % D, c = j / D, d = j % D;
@@ -324,22 +351,22 @@ __device__ void proj_tp(Mats<D>& s, int l, float xr, float xi, float& out_r,
 
 // `iters` Dykstra iterations (CP then TP) on the matrix whose entry l is
 // (zr, zi); ends on the TP half-step. The result replaces (zr, zi).
-template <int D>
+template <int D, class Sync = BlockSync>
 __device__ void dykstra(Mats<D>& s, const Pairs<D>& pairs, int l, int iters,
-                        int sweeps, float& zr, float& zi) {
+                        int sweeps, float& zr, float& zi, Sync sync = Sync()) {
   float cp_r = 0.f, cp_i = 0.f, tp_r = 0.f, tp_i = 0.f;
   float st_r = zr, st_i = zi;
   for (int it = 0; it < iters; ++it) {
     const float pre_r = st_r - cp_r, pre_i = st_i - cp_i;
     s.sr[l] = pre_r;
     s.si[l] = pre_i;
-    __syncthreads();
+    sync();
     float pos_r, pos_i;
-    warm_cp<D>(s, pairs, sweeps, l, pos_r, pos_i);
+    warm_cp<D>(s, pairs, sweeps, l, pos_r, pos_i, sync);
     cp_r = pos_r - pre_r;
     cp_i = pos_i - pre_i;
     const float pre2_r = pos_r - tp_r, pre2_i = pos_i - tp_i;
-    proj_tp<D>(s, l, pre2_r, pre2_i, st_r, st_i);
+    proj_tp<D>(s, l, pre2_r, pre2_i, st_r, st_i, sync);
     tp_r = st_r - pre2_r;
     tp_i = st_i - pre2_i;
   }
@@ -348,109 +375,252 @@ __device__ void dykstra(Mats<D>& s, const Pairs<D>& pairs, int l, int iters,
 }
 
 // ---------------------------------------------------------------------------
-// The passes over A. D = 4: A in device memory (L2), one problem per block.
+// The passes over A. D = 4: A and A^T in device memory (L2), P problems per
+// block; every element of A or A^T that a block loads serves all P.
 // ---------------------------------------------------------------------------
 
-// p_r = max(Re(A x)_r, EPS_P) for x in s.sr/s.si (written and synced by the
-// caller), one warp per row. With `cost` false it stores eta_r = n_r / p_r;
-// with `cost` true it returns -sum_r n_r log p_r, the same value in every
-// thread. Ends with a __syncthreads.
-__device__ float a_pass(Mats<4>& s, float* red, const float* __restrict__ a_r,
-                        const float* __restrict__ a_i, const float* sn,
-                        float* seta, int rows, int t, bool cost) {
-  constexpr int NN = Dims<4>::NN;
-  const int w = t >> 5, lane = t & 31;
-  float part = 0.f;
-  for (int r = w; r < rows; r += WARPS) {
-    const float* rr = a_r + static_cast<size_t>(r) * NN;
-    const float* ri = a_i + static_cast<size_t>(r) * NN;
-    float acc = 0.f;
+// P consecutive floats of shared memory (16-byte aligned at P = 4, 8-byte at
+// P = 2) in one load, and back.
+template <int P>
+__device__ __forceinline__ void load_p(const float* src, float (&v)[P]) {
+  static_assert(P == 2 || P == 4, "2 or 4 problems per block at D = 4");
+  if constexpr (P == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(src);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    const float2 q = *reinterpret_cast<const float2*>(src);
+    v[0] = q.x;
+    v[1] = q.y;
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void store_p(float* dst, const float (&v)[P]) {
+  if constexpr (P == 4)
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+}
+
+// The shared memory of a D = 4 block of P problems. The block's counts and
+// eta follow it in the dynamic allocation, rows x P floats each, laid out
+// [r][g] so that one load gives row r of all P problems.
+template <int P>
+struct Shared2q {
+  static constexpr int NN = Dims<4>::NN;
+  static constexpr int WARPS = THREADS * P / 32;
+  Mats<4> mats[P];            // problem g's matrices
+  float xr[NN * P], xi[NN * P];  // operand x of the p pass, [k][g]
+  float part[2 * P * P * NN];  // A^T eta partial sums, [g'][re, im][g][j]
+  float red[WARPS * P];        // per-warp cost sums, [w][g]
+  Pairs<4> pairs;
+};
+
+// Bytes of Shared2q<P>, rounded up to 16 (where the counts start).
+template <int P>
+__host__ __device__ constexpr size_t shared2q_head() {
+  return (sizeof(Shared2q<P>) + 15) & ~static_cast<size_t>(15);
+}
+
+// p_g[r] = max(Re(A x_g)[r], EPS_P) for the block's P problems, x_g in
+// sh.xr/xi (written and synced by the caller). A half-warp takes 16
+// consecutive rows r, one a lane, and one half of k: it loads A^T[k, r]
+// (coalesced over the rows) and x_g[k] of all P problems (one broadcast
+// load a plane), and keeps P sums; the halves join by a shuffle. With `cost`
+// false it stores eta_g[r] = n_g[r] / p_g[r]; with `cost` true it returns
+// -sum_r n_g[r] log p_g[r] of this thread's problem g, the same value in each
+// of the group's threads (per-thread sums over its rows, a shuffle tree in
+// the warp, then the warps in order). Ends with a __syncthreads.
+template <int P>
+__device__ float a_pass_2q(Shared2q<P>& sh, const float* __restrict__ at_r,
+                           const float* __restrict__ at_i, const float* sn,
+                           float* seta, int rows, int t, bool cost) {
+  constexpr int NN = Dims<4>::NN, KH = NN / 2, NW = Shared2q<P>::WARPS;
+  const int w = t >> 5, lane = t & 31, half = lane >> 4;
+  const float* xr = sh.xr + half * KH * P;
+  const float* xi = sh.xi + half * KH * P;
+  float part[P];
 #pragma unroll
-    for (int m = 0; m < NN / 32; ++m) {
-      const int k = lane + 32 * m;
-      acc += __ldg(rr + k) * s.sr[k] - __ldg(ri + k) * s.si[k];
+  for (int g = 0; g < P; ++g) part[g] = 0.f;
+  for (int q = w; 16 * q < rows; q += NW) {
+    const int r = 16 * q + (lane & 15);
+    float acc[P];
+#pragma unroll
+    for (int g = 0; g < P; ++g) acc[g] = 0.f;
+    if (r < rows) {
+      const float* cr = at_r + static_cast<size_t>(half * KH) * rows + r;
+      const float* ci = at_i + static_cast<size_t>(half * KH) * rows + r;
+#pragma unroll 4
+      for (int k = 0; k < KH; ++k) {
+        const float vr = __ldg(cr + static_cast<size_t>(k) * rows);
+        const float vi = __ldg(ci + static_cast<size_t>(k) * rows);
+        float x_r[P], x_i[P];
+        load_p<P>(xr + k * P, x_r);
+        load_p<P>(xi + k * P, x_i);
+#pragma unroll
+        for (int g = 0; g < P; ++g)
+          acc[g] = fmaf(-vi, x_i[g], fmaf(vr, x_r[g], acc[g]));
+      }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    const float p = fmaxf(acc, EPS_P);
-    if (cost)
-      part += sn[r] * logf(p);  // lane 0's sum is the one used
-    else if (lane == 0)
-      seta[r] = sn[r] / p;
+    for (int g = 0; g < P; ++g)
+      acc[g] += __shfl_down_sync(0xffffffffu, acc[g], 16);
+    if (half == 0 && r < rows) {
+      float nv[P], e[P];
+      load_p<P>(sn + r * P, nv);
+#pragma unroll
+      for (int g = 0; g < P; ++g) {
+        const float p = fmaxf(acc[g], EPS_P);
+        if (cost)
+          part[g] = fmaf(nv[g], logf(p), part[g]);
+        else
+          e[g] = nv[g] / p;
+      }
+      if (!cost) store_p<P>(seta + r * P, e);
+    }
   }
   if (!cost) {
     __syncthreads();
     return 0.f;
   }
-  if (lane == 0) red[w] = part;
+#pragma unroll
+  for (int g = 0; g < P; ++g) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      part[g] += __shfl_xor_sync(0xffffffffu, part[g], off);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < P; ++g) sh.red[w * P + g] = part[g];
+  }
   __syncthreads();
+  const int g = t / NN;
   float total = 0.f;
-  for (int k = 0; k < WARPS; ++k) total += red[k];
+  for (int k = 0; k < NW; ++k) total += sh.red[k * P + g];
   return -total;
 }
 
-__device__ float cost_of(Mats<4>& s, float* red, const float* __restrict__ a_r,
-                         const float* __restrict__ a_i, const float* sn,
+// The cost of the matrix whose entry l of problem g is (xr, xi).
+template <int P>
+__device__ float cost_2q(Shared2q<P>& sh, const float* __restrict__ at_r,
+                         const float* __restrict__ at_i, const float* sn,
                          int rows, int t, float xr, float xi) {
-  s.sr[t] = xr;
-  s.si[t] = xi;
+  const int g = t / Dims<4>::NN, l = t % Dims<4>::NN;
+  sh.xr[l * P + g] = xr;
+  sh.xi[l * P + g] = xi;
   __syncthreads();
-  return a_pass(s, red, a_r, a_i, sn, nullptr, rows, t, true);
+  return a_pass_2q<P>(sh, at_r, at_i, sn, nullptr, rows, t, true);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Gradient entry j of this thread's problem g: g_r = -sum_r A_r[r, j] eta_r,
+// g_i = sum_r A_i[r, j] eta_r, eta in seta (written and synced by the
+// caller). Thread (g', j) sums column j over the rows r = g' (mod P) for all
+// P problems: it loads A[r, j] (coalesced over j) and eta_g[r] of all P (one
+// broadcast load), and keeps 2P sums. Then thread (g, j) adds the P partial
+// sums of its entry in the order g' = 0, 1, ... through shared memory.
+template <int P>
+__device__ void grad_2q(Shared2q<P>& sh, const float* __restrict__ a_r,
+                        const float* __restrict__ a_i, const float* seta,
+                        int rows, int t, float& g_r, float& g_i) {
+  constexpr int NN = Dims<4>::NN;
+  const int gp = t / NN, j = t % NN;
+  float sr[P], si[P];
+#pragma unroll
+  for (int g = 0; g < P; ++g) sr[g] = si[g] = 0.f;
+#pragma unroll 4
+  for (int r = gp; r < rows; r += P) {
+    const float vr = __ldg(a_r + static_cast<size_t>(r) * NN + j);
+    const float vi = __ldg(a_i + static_cast<size_t>(r) * NN + j);
+    float e[P];
+    load_p<P>(seta + r * P, e);
+#pragma unroll
+    for (int g = 0; g < P; ++g) {
+      sr[g] = fmaf(vr, e[g], sr[g]);
+      si[g] = fmaf(vi, e[g], si[g]);
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < P; ++g) {
+    sh.part[((2 * gp) * P + g) * NN + j] = sr[g];
+    sh.part[((2 * gp + 1) * P + g) * NN + j] = si[g];
+  }
+  __syncthreads();
+  float tr = sh.part[gp * NN + j], ti = sh.part[(P + gp) * NN + j];
+  for (int q = 1; q < P; ++q) {
+    tr += sh.part[((2 * q) * P + gp) * NN + j];
+    ti += sh.part[((2 * q + 1) * P + gp) * NN + j];
+  }
+  g_r = -tr;
+  g_i = ti;
+}
+
+template <int P>
+__global__ void __launch_bounds__(THREADS * P, P == 2 ? 2 : 1)
     apg_fused_kernel(const float* __restrict__ a_r,
                      const float* __restrict__ a_i,
+                     const float* __restrict__ at_r,
+                     const float* __restrict__ at_i,
                      const float* __restrict__ n,
                      const float* __restrict__ rho0_r,
                      const float* __restrict__ rho0_i,
                      float* __restrict__ out_r, float* __restrict__ out_i,
-                     int rows, const ApgSchedule sch) {
+                     int batch, int rows, const ApgSchedule sch) {
   constexpr int NN = Dims<4>::NN;
-  static_assert(Dims<4>::P == 1, "one problem per block at D = 4");
-  __shared__ Mats<4> s;
-  __shared__ float red[WARPS];     // per-warp partial sums of the cost
-  __shared__ Pairs<4> pairs;
-  extern __shared__ float dyn[];
-  float* sn = dyn;            // counts of this problem, rows entries
-  float* seta = dyn + rows;   // n / p, rows entries
-  const int t = threadIdx.x;
-  const size_t b = blockIdx.x;
+  extern __shared__ __align__(16) unsigned char smem2q[];
+  Shared2q<P>& sh = *reinterpret_cast<Shared2q<P>*>(smem2q);
+  float* sn = reinterpret_cast<float*>(smem2q + shared2q_head<P>());
+  float* seta = sn + static_cast<size_t>(rows) * P;  // n / p, [r][g]
+  const int t = threadIdx.x, g = t / NN, l = t % NN;
+  const size_t first = static_cast<size_t>(blockIdx.x) * P;
+  const size_t b = first + g;
+  const bool live = b < static_cast<size_t>(batch);
+  Mats<4>& s = sh.mats[g];
 
-  load_pairs<4>(pairs, t);
-  for (int r = t; r < rows; r += THREADS) sn[r] = n[b * rows + r];
-  s.e.vr[t] = (t >> 4) == (t & 15) ? 1.f : 0.f;
-  s.e.vi[t] = 0.f;
-  float est_r = rho0_r[b * NN + t], est_i = rho0_i[b * NN + t];
-  // every shared buffer above is read only after the first __syncthreads
-  dykstra<4>(s, pairs, t, sch.init_iters, sch.init_sweeps, est_r, est_i);
+  load_pairs<4>(sh.pairs, t);
+  // problems past the batch run on zero counts and a zero start, and are
+  // not written back
+  const size_t n_end = static_cast<size_t>(batch) * rows;
+  for (int k = t; k < P * rows; k += THREADS * P) {
+    const int q = k / rows;
+    const size_t idx = first * rows + k;
+    sn[(k - q * rows) * P + q] = idx < n_end ? n[idx] : 0.f;
+  }
+  s.e.vr[l] = (l >> 4) == (l & 15) ? 1.f : 0.f;
+  s.e.vi[l] = 0.f;
+  float est_r = live ? rho0_r[b * NN + l] : 0.f;
+  float est_i = live ? rho0_i[b * NN + l] : 0.f;
+  // the pair table and the counts are written by threads of other groups
+  __syncthreads();
+  // Dykstra touches only the group's own matrices: its barriers are the
+  // group's; the passes over A between two projections are block-wide
+  const GroupSync gsync{1 + g};
+  dykstra<4>(s, sh.pairs, l, sch.init_iters, sch.init_sweeps, est_r, est_i,
+             gsync);
 
   float prev_r = est_r, prev_i = est_i;
   float tk = 1.f;
-  float old_cost = cost_of(s, red, a_r, a_i, sn, rows, t, est_r, est_i);
+  float old_cost = cost_2q<P>(sh, at_r, at_i, sn, rows, t, est_r, est_i);
   for (int ph = 0; ph < sch.n_phases; ++ph) {
     for (int it = 0; it < sch.outer[ph]; ++it) {
       const float t_next = (1.f + sqrtf(1.f + 4.f * tk * tk)) / 2.f;
       const float beta = (tk - 1.f) / t_next;
       const float y_r = est_r + beta * (est_r - prev_r);
       const float y_i = est_i + beta * (est_i - prev_i);
-      s.sr[t] = y_r;
-      s.si[t] = y_i;
+      sh.xr[l * P + g] = y_r;
+      sh.xi[l * P + g] = y_i;
       __syncthreads();
-      a_pass(s, red, a_r, a_i, sn, seta, rows, t, false);
-      // gradient entry t: -sum_r A_r[r, t] eta_r + i sum_r A_i[r, t] eta_r
-      float sum_r = 0.f, g_i = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        const float e = seta[r];
-        sum_r += __ldg(a_r + static_cast<size_t>(r) * NN + t) * e;
-        g_i += __ldg(a_i + static_cast<size_t>(r) * NN + t) * e;
-      }
-      const float g_r = -sum_r;
+      a_pass_2q<P>(sh, at_r, at_i, sn, seta, rows, t, false);
+      float g_r, g_i;
+      grad_2q<P>(sh, a_r, a_i, seta, rows, t, g_r, g_i);
       float z_r = y_r - sch.inv_mu * g_r;
       float z_i = y_i - sch.inv_mu * g_i;
-      dykstra<4>(s, pairs, t, sch.dykstra[ph], sch.sweeps[ph], z_r, z_i);
-      const float new_cost = cost_of(s, red, a_r, a_i, sn, rows, t, z_r, z_i);
+      dykstra<4>(s, sh.pairs, l, sch.dykstra[ph], sch.sweeps[ph], z_r, z_i,
+                 gsync);
+      const float new_cost = cost_2q<P>(sh, at_r, at_i, sn, rows, t, z_r,
+                                        z_i);
       // O'Donoghue-Candes function restart
       tk = new_cost > old_cost ? 1.f : t_next;
       prev_r = est_r;
@@ -460,9 +630,12 @@ __global__ void __launch_bounds__(THREADS)
       old_cost = new_cost;
     }
   }
-  dykstra<4>(s, pairs, t, sch.final_iters, sch.final_sweeps, est_r, est_i);
-  out_r[b * NN + t] = est_r;
-  out_i[b * NN + t] = est_i;
+  dykstra<4>(s, sh.pairs, l, sch.final_iters, sch.final_sweeps, est_r, est_i,
+             gsync);
+  if (live) {
+    out_r[b * NN + l] = est_r;
+    out_i[b * NN + l] = est_i;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -621,6 +794,7 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace
 
 extern "C" int apg_fused_launch(const float* a_r, const float* a_i,
+                                const float* at_r, const float* at_i,
                                 const float* n, const float* rho0_r,
                                 const float* rho0_i, float* out_r,
                                 float* out_i, int batch, int rows, int dim,
@@ -629,13 +803,20 @@ extern "C" int apg_fused_launch(const float* a_r, const float* a_i,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dim == 4) {
-    const size_t dyn = 2 * static_cast<size_t>(rows) * sizeof(float);
-    err = cudaFuncSetAttribute(apg_fused_kernel,
+    // at_r/at_i: A^T, (256, rows) planes, read by the p pass
+    constexpr int P = APG_PROBLEMS_PER_BLOCK;
+    const size_t dyn = shared2q_head<P>() +
+                       2 * P * static_cast<size_t>(rows) * sizeof(float);
+    err = cudaFuncSetAttribute(apg_fused_kernel<P>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(dyn));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    apg_fused_kernel<<<batch, THREADS, dyn, st>>>(
-        a_r, a_i, n, rho0_r, rho0_i, out_r, out_i, rows, *sched);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, so that no later check reports it
+      return static_cast<int>(err);
+    }
+    apg_fused_kernel<P><<<(batch + P - 1) / P, THREADS * P, dyn, st>>>(
+        a_r, a_i, at_r, at_i, n, rho0_r, rho0_i, out_r, out_i, batch, rows,
+        *sched);
   } else if (dim == 2) {
     constexpr int P = Dims<2>::P;
     const size_t dyn = (2 * PAD_1Q + 2 * P) * static_cast<size_t>(rows) *
@@ -643,7 +824,10 @@ extern "C" int apg_fused_launch(const float* a_r, const float* a_i,
     err = cudaFuncSetAttribute(apg_fused_1q_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(dyn));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, so that no later check reports it
+      return static_cast<int>(err);
+    }
     apg_fused_1q_kernel<<<(batch + P - 1) / P, THREADS, dyn, st>>>(
         a_r, a_i, n, rho0_r, rho0_i, out_r, out_i, batch, rows, *sched);
   } else {

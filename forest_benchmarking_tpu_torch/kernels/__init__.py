@@ -8,6 +8,10 @@ the package, named by a hash of the flags, the source and every file under
 ``csrc/`` that the source includes (``#include "..."``), so an edited source
 or header builds anew and an unchanged one loads at once. Nothing here runs
 at import time.
+
+``PROBLEMS_PER_BLOCK`` (2 or 4) is the number of problems a block of the
+dim = 4 fused solve holds; the build passes it to ``nvcc`` as
+``-DAPG_PROBLEMS_PER_BLOCK``, so each value has its own library.
 """
 from __future__ import annotations
 
@@ -23,13 +27,18 @@ import types
 from pathlib import Path
 
 __all__ = ["ApgSchedule", "load", "build_log", "error_string", "CSRC",
-           "BUILD_DIR"]
+           "BUILD_DIR", "PROBLEMS_PER_BLOCK"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_PHASES = 8   # must match APG_MAX_PHASES in csrc/apg_fused.cu
+PROBLEMS_PER_BLOCK = 4
+
+
+def _flags() -> tuple:
+    return NVCC_FLAGS + (f"-DAPG_PROBLEMS_PER_BLOCK={PROBLEMS_PER_BLOCK}",)
 
 
 class ApgSchedule(ctypes.Structure):
@@ -71,7 +80,7 @@ def _lib_paths(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> dict:
     csrc = csrc.resolve()
     paths = {}
     for src in sorted(csrc.glob("*.cu")):
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(_flags()).encode())
         for path in _inputs(src, csrc):
             h.update(path.relative_to(csrc).as_posix().encode() + b"\0")
             h.update(path.read_bytes())
@@ -101,7 +110,7 @@ def _build(paths: dict) -> None:
             for stem in paths:
                 so, src = os.path.join(tmp, stem + ".so"), CSRC / f"{stem}.cu"
                 procs[stem] = subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-shared", "-o", so, str(src)],
+                    [nvcc, *_flags(), "-shared", "-o", so, str(src)],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             logs = {stem: proc.communicate()[0] for stem, proc in procs.items()}
         finally:
@@ -122,13 +131,17 @@ def _build(paths: dict) -> None:
 @functools.lru_cache(maxsize=None)
 def load() -> types.SimpleNamespace:
     """Build (if needed) and load the kernel libraries; their launch
-    functions, cached per process."""
+    functions, cached per process (set ``PROBLEMS_PER_BLOCK`` before the
+    first call)."""
+    if PROBLEMS_PER_BLOCK not in (2, 4):
+        raise ValueError(f"PROBLEMS_PER_BLOCK must be 2 or 4, got "
+                         f"{PROBLEMS_PER_BLOCK}")
     paths = _lib_paths()
     if not all(path.exists() for path in paths.values()):
         _build(paths)
     apg, qv = (ctypes.CDLL(str(paths[stem])) for stem in ("apg_fused",
                                                           "qv_traj"))
-    apg.apg_fused_launch.argtypes = [ctypes.c_void_p] * 7 + [
+    apg.apg_fused_launch.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.c_int] * 3 + [ctypes.POINTER(ApgSchedule), ctypes.c_void_p]
     apg.apg_fused_launch.restype = ctypes.c_int
     apg.cp_project_launch.argtypes = [ctypes.c_void_p] * 2 + [

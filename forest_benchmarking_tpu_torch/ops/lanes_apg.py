@@ -33,7 +33,7 @@ from forest_benchmarking_tpu_torch import kernels
 __all__ = [
     "raster_a_matrix", "linear_inversion_start", "apg_fused_reference",
     "apg_fused_kernel", "apg_fused", "apg_fused_flops_per_solve",
-    "full_f32_matmul",
+    "apg_fused_l2_bytes_per_solve", "full_f32_matmul",
     "PARITY_PHASES", "PARITY_TUNED_2Q", "HEADLINE_TUNED_2Q",
 ]
 
@@ -350,8 +350,9 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
 
     Takes what :func:`apg_fused_reference` takes, as contiguous float32
     CUDA tensors, and returns the same (est_r, est_i) planes. ``dim`` is 4
-    (one problem per thread block) or 2 (sixteen per block). Adds one to
-    ``apg_fused.launches`` per launch."""
+    (``kernels.PROBLEMS_PER_BLOCK`` problems per thread block; the kernel
+    also reads A^T, which is formed here) or 2 (sixteen per block). Adds one
+    to ``apg_fused.launches`` per launch."""
     if dim not in (2, 4):
         raise NotImplementedError(
             f"the CUDA fused solver is built for dim=2 (1Q) and dim=4 (2Q), "
@@ -387,11 +388,15 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
     out_i = torch.empty_like(rho0_i)
     lib = kernels.load()
     with torch.cuda.device(ar.device):
+        # the dim = 4 p pass reads A^T, coalesced over the rows (dim = 2
+        # does not read it)
+        at_r, at_i = ar.T.contiguous(), ai.T.contiguous()
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.apg_fused_launch(
-            ar.data_ptr(), ai.data_ptr(), n.data_ptr(), rho0_r.data_ptr(),
-            rho0_i.data_ptr(), out_r.data_ptr(), out_i.data_ptr(), b, rows,
-            dim, ctypes.byref(sched), stream)
+            ar.data_ptr(), ai.data_ptr(), at_r.data_ptr(), at_i.data_ptr(),
+            n.data_ptr(), rho0_r.data_ptr(), rho0_i.data_ptr(),
+            out_r.data_ptr(), out_i.data_ptr(), b, rows, dim,
+            ctypes.byref(sched), stream)
     if err != 0:
         raise RuntimeError(f"apg_fused kernel launch failed: CUDA error "
                            f"{err} ({kernels.error_string(err)})")
@@ -426,13 +431,32 @@ def apg_fused_flops_per_solve(rows: int, dim: int = 4,
         return 2 * n * n + 16.0 * n ** 3 + sweeps * 36.0 * n * n * (n - 1) \
             + 8.0 * n ** 3 + 4 * n * n
 
-    outer = sum(p[0] for p in phases)
-    total = (1 + 3 * outer) * per_pass
+    total = _a_passes(phases) * per_pass
     total += init_iters * per_dykstra(init_sweeps)
     total += final_iters * per_dykstra(final_sweeps)
     for iters, ld, sweeps in phases:
         total += iters * ld * per_dykstra(sweeps)
     return total
+
+
+def apg_fused_l2_bytes_per_solve(rows: int, dim: int = 4,
+                                 problems_per_block: int = 1,
+                                 phases: Sequence[Tuple[int, int, int]] = PARITY_PHASES,
+                                 **schedule) -> float:
+    """Bytes the CUDA kernel reads from L2 for A per solve: every pass reads
+    one f32 copy of the two planes of A (A or A^T, 2 x R x dim^4 x 4 bytes),
+    once for all ``problems_per_block`` problems of a block. The passes are
+    those :func:`apg_fused_flops_per_solve` counts; the other schedule
+    arguments do not change the count and are accepted so that a schedule
+    dict can be passed whole."""
+    n = dim * dim
+    return _a_passes(phases) * 2.0 * rows * n * n * 4 / problems_per_block
+
+
+def _a_passes(phases) -> int:
+    """Passes over A of one solve: 1 for the first cost plus 3 per outer
+    step (p and A^T eta at y, p for the candidate's cost)."""
+    return 1 + 3 * sum(p[0] for p in phases)
 
 
 def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from forest_benchmarking_tpu_torch import quantum_volume
+from forest_benchmarking_tpu_torch import kernels, quantum_volume
 from forest_benchmarking_tpu_torch.benchmarks import (
     inputs_from_numpy, process_tomo_A_matrix, synth_process_datasets)
 from forest_benchmarking_tpu_torch.ops import (
@@ -45,13 +45,7 @@ def case(cuda):
     return in32, in64, n
 
 
-@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
-def test_kernel_against_plain_version(case, schedule):
-    """The kernel's max deviation from the plain f64 solve is at most twice
-    the plain f32 solve's + 1e-5 (f32 round-off, reordered sums and the
-    discontinuous restart rule make bitwise equality the wrong bar)."""
-    in32, in64, n = case
-    cfg = SCHEDULES[schedule]
+def _hold_against_plain(in32, in64, n, cfg):
     kern = lanes_apg.apg_fused(in32.a, n, 4, a_pinv=in32.a_pinv, **cfg)
     rho0 = lanes_apg.linear_inversion_start(in32.a_pinv, n, 4)
     plain32 = torch.complex(*lanes_apg.apg_fused_reference(
@@ -65,6 +59,54 @@ def test_kernel_against_plain_version(case, schedule):
     assert dev_k <= 2 * dev_p + 1e-5
     pt = torch.diagonal(kern.reshape(-1, 4, 4, 4, 4), dim1=2, dim2=4).sum(-1)
     assert (pt - torch.eye(4, device=kern.device)).abs().max() < 1e-5
+
+
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+def test_kernel_against_plain_version(case, schedule):
+    """The kernel's max deviation from the plain f64 solve is at most twice
+    the plain f32 solve's + 1e-5 (f32 round-off, reordered sums and the
+    discontinuous restart rule make bitwise equality the wrong bar)."""
+    in32, in64, n = case
+    _hold_against_plain(in32, in64, n, SCHEDULES[schedule])
+
+
+@pytest.mark.parametrize("batch", [63, 65])
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+def test_kernel_against_plain_version_at_a_tail_batch(cuda, schedule, batch):
+    """A batch that is not a multiple of the problems per block: the last
+    block runs its empty slots on zero counts and writes only its live
+    problems. Same bar as at B = 64."""
+    a = process_tomo_A_matrix(2)
+    in32 = inputs_from_numpy(a, np.zeros((1, 1080)), device=cuda)
+    in64 = inputs_from_numpy(a, np.zeros((1, 1080)), device=cuda,
+                             dtype=torch.float64)
+    assert batch % kernels.PROBLEMS_PER_BLOCK
+    gen = torch.Generator(device=cuda).manual_seed(batch)
+    n, _ = synth_process_datasets(gen, in32.a, 4, batch, 2000)
+    _hold_against_plain(in32, in64, n, SCHEDULES[schedule])
+
+
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+def test_estimate_does_not_depend_on_block_mates(case, schedule):
+    """A problem's estimate is bitwise the same whichever problems share its
+    block: with the batch permuted, and solved alone (B = 1)."""
+    in32, _, n = case
+    cfg = SCHEDULES[schedule]
+    n = n[:9].contiguous()
+    rho0 = lanes_apg.linear_inversion_start(in32.a_pinv, n, 4)
+
+    def solve(idx):
+        return torch.complex(*lanes_apg.apg_fused_kernel(
+            in32.ar, in32.ai, n[idx].contiguous(),
+            *(x[idx].contiguous() for x in rho0), dim=4, **cfg))
+
+    everything = solve(torch.arange(9, device=n.device))
+    perm = torch.randperm(9, generator=torch.Generator().manual_seed(3)).to(
+        n.device)
+    assert torch.equal(solve(perm), everything[perm])
+    for i in (0, 5, 8):
+        assert torch.equal(solve(torch.tensor([i], device=n.device)),
+                           everything[i:i + 1])
 
 
 def test_launch_counter_counts_kernel_launches(case):
@@ -89,6 +131,25 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, cuda):
                             **lanes_apg.HEADLINE_TUNED_2Q)
     with pytest.raises(ValueError, match="at most"):
         lanes_apg.apg_fused(in32.a, n, 4, phases=((1, 1, 1),) * 9)
+    rho0 = lanes_apg.linear_inversion_start(in32.a_pinv, n, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        lanes_apg.apg_fused_kernel(in32.ar, in32.ai, n.T.contiguous().T,
+                                   *rho0, dim=4)
+    with pytest.raises(ValueError, match="shape"):
+        lanes_apg.apg_fused_kernel(in32.ar, in32.ai, n[:-1], *rho0, dim=4)
+    with pytest.raises(ValueError, match="must be on"):
+        lanes_apg.apg_fused_kernel(in32.ar, in32.ai, n.cpu(), *rho0, dim=4)
+    # more rows than a block's shared memory holds: the launch is refused
+    rows = 20000
+    big = torch.zeros((rows, 256), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lanes_apg.apg_fused_kernel(big, big, torch.zeros((2, rows),
+                                                         device=cuda),
+                                   *(x[:2] for x in rho0), dim=4)
+    # the refused launch leaves no error behind for the next one
+    lanes_apg.apg_fused(in32.a, n, 4, a_pinv=in32.a_pinv,
+                        **lanes_apg.HEADLINE_TUNED_2Q)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("batch", [64, 100])

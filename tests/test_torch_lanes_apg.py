@@ -232,3 +232,36 @@ def test_flop_count_passes_over_a(schedule, passes):
     a_part = (lanes_apg.apg_fused_flops_per_solve(rows, **cfg)
               - lanes_apg.apg_fused_flops_per_solve(0, **cfg))
     assert a_part == passes * 4 * rows * 256
+
+
+@pytest.mark.parametrize("problems_per_block", [1, 2, 4])
+@pytest.mark.parametrize("schedule,passes", [("HEADLINE_TUNED_2Q", 16),
+                                             ("PARITY_TUNED_2Q", 133)])
+def test_l2_bytes_per_solve(schedule, passes, problems_per_block):
+    """Each pass reads one copy of A's two f32 planes, 2 x 1080 x 256 x 4 =
+    2,211,840 bytes, once for all the problems of a block."""
+    cfg = getattr(lanes_apg, schedule)
+    got = lanes_apg.apg_fused_l2_bytes_per_solve(1080, 4, problems_per_block,
+                                                 **cfg)
+    assert got == passes * 2_211_840 / problems_per_block
+
+
+def test_problems_per_block_is_a_build_flag(tmp_path):
+    """The dim = 4 kernel's problems per block reaches ``nvcc`` as a define,
+    and each value names its own library."""
+    before = kernels.PROBLEMS_PER_BLOCK
+    try:
+        names = set()
+        for p in (2, 4):
+            kernels.PROBLEMS_PER_BLOCK = p
+            assert f"-DAPG_PROBLEMS_PER_BLOCK={p}" in kernels._flags()
+            names.add(kernels._lib_paths()["apg_fused"].name)
+        assert len(names) == 2
+        kernels.PROBLEMS_PER_BLOCK = 3
+        with pytest.raises(ValueError, match="2 or 4"):
+            kernels.load()
+    finally:
+        kernels.PROBLEMS_PER_BLOCK = before
+    src = (kernels.CSRC / "apg_fused.cu").read_text()
+    assert re.search(r"#define APG_PROBLEMS_PER_BLOCK (\d+)", src).group(1) \
+        == str(kernels.PROBLEMS_PER_BLOCK)
