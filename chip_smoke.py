@@ -6,11 +6,7 @@ projection.
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
-    python3 chip_smoke.py [--problems-per-block P]
-
-``--problems-per-block`` (2 or 4; default ``kernels.PROBLEMS_PER_BLOCK``)
-builds the dim = 4 fused kernel with P problems per thread block, to
-compare the two layouts on the card.
+    python3 chip_smoke.py
 
 Phases, each of which must pass:
 
@@ -18,8 +14,8 @@ Phases, each of which must pass:
 2. build: compile the CUDA kernels from the sources in the checkout; print
    each kernel's registers and spills;
 3. kernel against plain version, both fused schedules, at B = 256, at
-   B = 253 (not a multiple of the problems per block: the last block runs
-   empty slots) and at the main path's B = 16384: the kernel's f32 result,
+   B = 253 (not a multiple of the four problems per block: the last block
+   runs empty slots) and at the main path's B = 16384: the kernel's f32 result,
    the plain PyTorch version's f32 result and its f64 result, all on the
    card, from the same counts and warm start. Bar: the kernel's max
    elementwise deviation from f64 is at most 2 x the plain f32 deviation +
@@ -130,7 +126,6 @@ and 99th percentile over problems; CP projection, the largest
 is ``{"ok": true, ...}``. Exits non-zero,
 printing no result, if CUDA is unavailable or any phase fails.
 """
-import argparse
 import contextlib
 import json
 import math
@@ -146,7 +141,7 @@ SEED = 2024
 BATCH = 16384
 SHOTS = 2000
 CHECK_BATCH = 256
-TAIL_BATCH = 253       # not a multiple of 2 or 4 problems per block
+TAIL_BATCH = 253       # not a multiple of PROBLEMS_PER_BLOCK_2Q
 SCHEDULES = ("headline", "parity")
 QV_DEPTH = 8
 QV_CIRCUITS = 1600
@@ -157,6 +152,7 @@ QV_CHECK_C = 16        # circuits of the phase-6 check
 QV_CHECKS = ((QV_DEPTH, 256), (QV_DEPTH - 1, 256), (QV_DEPTH, 500))
 ROUTE_BATCH = 256      # problems of each per-problem route in phase 11
 CP_SWEEPS = 6
+PROBLEMS_PER_BLOCK_2Q = 4   # PROBLEMS_2Q of csrc/apg_fused.cu
 PEAK_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # the dim = 4 kernel with one problem per block, B = 16384, headline /
@@ -349,22 +345,14 @@ def traj_agreement(kern: torch.Tensor, plain: torch.Tensor):
             col.max().item(), (kern.sum(1) - 1).abs().max().item())
 
 
-def main(argv=None) -> int:
+def main() -> int:
     t_start = time.perf_counter()
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--problems-per-block", type=int, choices=(2, 4),
-                        help="problems per block of the dim = 4 fused "
-                             "kernel (default: the package's)")
-    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
     from forest_benchmarking_tpu_torch import (
         kernels, quantum_volume, tomography)
-    if args.problems_per_block is not None:
-        kernels.PROBLEMS_PER_BLOCK = args.problems_per_block
-    ppb = kernels.PROBLEMS_PER_BLOCK
     from forest_benchmarking_tpu_torch.benchmarks import (
         inputs_from_numpy, process_tomo_A_matrix, synth_process_datasets)
     from forest_benchmarking_tpu_torch.ops import (
@@ -391,7 +379,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels.load()
     print(f"build: {time.perf_counter() - t0:.2f} s; dim = 4 fused kernel "
-          f"with {ppb} problems per block")
+          f"with {PROBLEMS_PER_BLOCK_2Q} problems per block")
     for line in kernels.build_log().splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")):
             print(f"  ptxas: {line.strip()}")
@@ -454,12 +442,12 @@ def main(argv=None) -> int:
         ms_p, plain32 = cuda_ms(lambda: lanes_apg.apg_fused_reference(
             in32.ar, in32.ai, n, *rho0, dim=4, **cfg))
         timing[name] = (ms_k, ms_p)
-        l2 = lanes_apg.apg_fused_l2_bytes_per_solve(a_np.shape[0], 4, ppb,
-                                                    **cfg)
+        l2 = lanes_apg.apg_fused_l2_bytes_per_solve(
+            a_np.shape[0], 4, PROBLEMS_PER_BLOCK_2Q, **cfg)
         print(f"timing {name}: B={BATCH} kernel {ms_k:.3f} ms "
               f"({BATCH / ms_k * 1e3:.0f} solves/s), plain {ms_p:.3f} ms "
               f"({BATCH / ms_p * 1e3:.0f} solves/s) on {card}")
-        print(f"  {ppb} problems per block: A read from L2 "
+        print(f"  {PROBLEMS_PER_BLOCK_2Q} problems per block: A read from L2 "
               f"{l2 / 1e6:.3f} MB per solve, {BATCH * l2 / ms_k / 1e9:.3f} "
               f"TB/s at the kernel time; one problem per block took "
               f"{ms_one:.3f} ms (PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
@@ -484,7 +472,8 @@ def main(argv=None) -> int:
     ms_sweep = (split["dykstra3"] - split["dykstra1"]) / 40
     a_bytes = 2 * a_np.shape[0] * 256 * 4
     print(f"split: B={BATCH} one pass over A {ms_pass:.3f} ms "
-          f"({BATCH * a_bytes / ppb / ms_pass / 1e9:.3f} TB/s of A from L2), "
+          f"({BATCH * a_bytes / PROBLEMS_PER_BLOCK_2Q / ms_pass / 1e9:.3f} "
+          f"TB/s of A from L2), "
           f"one Dykstra iteration of 1 sweep {ms_iter:.3f} ms, each further "
           f"sweep {ms_sweep:.3f} ms (schedules of 31 passes: "
           f"{split['passes']:.3f} ms; 20 iterations at 1 and 3 sweeps: "

@@ -27,7 +27,7 @@
 //
 // Layout: a problem's Choi entries (i, j), n = D^2 of each, are held one per
 // thread, by a group of n^2 threads. At D = 4 a block is P groups of 256
-// threads (P problems, P = APG_PROBLEMS_PER_BLOCK); at D = 2 it is sixteen
+// threads (P = PROBLEMS_2Q = 4 problems); at D = 2 it is sixteen
 // groups of 16 threads (sixteen problems) in 256 threads. The schedule is
 // static, so every problem of a block runs the same steps and the
 // block-wide __syncthreads points serve every group. The elementwise
@@ -71,11 +71,6 @@
 #include <cuda_runtime.h>
 
 #define APG_MAX_PHASES 8  // must match MAX_PHASES in kernels/__init__.py
-// Problems per block at D = 4: 2 or 4. The build passes
-// -DAPG_PROBLEMS_PER_BLOCK=<kernels.PROBLEMS_PER_BLOCK>.
-#ifndef APG_PROBLEMS_PER_BLOCK
-#define APG_PROBLEMS_PER_BLOCK 4
-#endif
 
 struct ApgSchedule {
   int n_phases;
@@ -92,6 +87,7 @@ constexpr int THREADS = 256;
 constexpr float EPS_ROT = 1e-18f;  // f32 rotation threshold of _rotation_coeffs
 constexpr float EPS_P = 1e-6f;     // probability clamp
 constexpr int PAD_1Q = 17;         // row stride of A in shared memory at D = 2
+constexpr int PROBLEMS_2Q = 4;     // problems per block at D = 4
 
 // Shapes of the problem at Hilbert-space dimension D.
 template <int D>
@@ -379,30 +375,22 @@ __device__ void dykstra(Mats<D>& s, const Pairs<D>& pairs, int l, int iters,
 // block; every element of A or A^T that a block loads serves all P.
 // ---------------------------------------------------------------------------
 
-// P consecutive floats of shared memory (16-byte aligned at P = 4, 8-byte at
-// P = 2) in one load, and back.
+// Four consecutive floats of shared memory (16-byte aligned), one a problem
+// of the block, in one load, and back.
 template <int P>
 __device__ __forceinline__ void load_p(const float* src, float (&v)[P]) {
-  static_assert(P == 2 || P == 4, "2 or 4 problems per block at D = 4");
-  if constexpr (P == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(src);
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  } else {
-    const float2 q = *reinterpret_cast<const float2*>(src);
-    v[0] = q.x;
-    v[1] = q.y;
-  }
+  static_assert(P == 4, "the loads of the D = 4 passes hold four problems");
+  const float4 q = *reinterpret_cast<const float4*>(src);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
 }
 
 template <int P>
 __device__ __forceinline__ void store_p(float* dst, const float (&v)[P]) {
-  if constexpr (P == 4)
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  else
-    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  static_assert(P == 4, "the stores of the D = 4 passes hold four problems");
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
 // The shared memory of a D = 4 block of P problems. The block's counts and
@@ -558,7 +546,7 @@ __device__ void grad_2q(Shared2q<P>& sh, const float* __restrict__ a_r,
 }
 
 template <int P>
-__global__ void __launch_bounds__(THREADS * P, P == 2 ? 2 : 1)
+__global__ void __launch_bounds__(THREADS * P, 1)
     apg_fused_kernel(const float* __restrict__ a_r,
                      const float* __restrict__ a_i,
                      const float* __restrict__ at_r,
@@ -804,7 +792,7 @@ extern "C" int apg_fused_launch(const float* a_r, const float* a_i,
   cudaError_t err;
   if (dim == 4) {
     // at_r/at_i: A^T, (256, rows) planes, read by the p pass
-    constexpr int P = APG_PROBLEMS_PER_BLOCK;
+    constexpr int P = PROBLEMS_2Q;
     const size_t dyn = shared2q_head<P>() +
                        2 * P * static_cast<size_t>(rows) * sizeof(float);
     err = cudaFuncSetAttribute(apg_fused_kernel<P>,

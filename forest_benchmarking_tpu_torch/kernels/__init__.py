@@ -6,12 +6,9 @@ own with a plain C interface, loaded with ``ctypes``; the ``nvcc`` processes
 of all sources run at once. The libraries land in ``build/kernels/`` beside
 the package, named by a hash of the flags, the source and every file under
 ``csrc/`` that the source includes (``#include "..."``), so an edited source
-or header builds anew and an unchanged one loads at once. Nothing here runs
-at import time.
-
-``PROBLEMS_PER_BLOCK`` (2 or 4) is the number of problems a block of the
-dim = 4 fused solve holds; the build passes it to ``nvcc`` as
-``-DAPG_PROBLEMS_PER_BLOCK``, so each value has its own library.
+or header builds anew and an unchanged one loads at once. ``load`` and
+``build_log`` also take another source directory (a variant of ``csrc/``
+to measure) and its own build directory. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -27,18 +24,13 @@ import types
 from pathlib import Path
 
 __all__ = ["ApgSchedule", "load", "build_log", "error_string", "CSRC",
-           "BUILD_DIR", "PROBLEMS_PER_BLOCK"]
+           "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_PHASES = 8   # must match APG_MAX_PHASES in csrc/apg_fused.cu
-PROBLEMS_PER_BLOCK = 4
-
-
-def _flags() -> tuple:
-    return NVCC_FLAGS + (f"-DAPG_PROBLEMS_PER_BLOCK={PROBLEMS_PER_BLOCK}",)
 
 
 class ApgSchedule(ctypes.Structure):
@@ -80,7 +72,7 @@ def _lib_paths(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> dict:
     csrc = csrc.resolve()
     paths = {}
     for src in sorted(csrc.glob("*.cu")):
-        h = hashlib.sha256(" ".join(_flags()).encode())
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         for path in _inputs(src, csrc):
             h.update(path.relative_to(csrc).as_posix().encode() + b"\0")
             h.update(path.read_bytes())
@@ -100,17 +92,18 @@ def _nvcc() -> str:
                        "toolkit (nvcc on PATH or CUDA_HOME set)")
 
 
-def _build(paths: dict) -> None:
+def _build(paths: dict, csrc: Path) -> None:
     """Compile every source at once, each into its library and its log."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir = next(iter(paths.values())).parent
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         procs = {}
         try:
             for stem in paths:
-                so, src = os.path.join(tmp, stem + ".so"), CSRC / f"{stem}.cu"
+                so, src = os.path.join(tmp, stem + ".so"), csrc / f"{stem}.cu"
                 procs[stem] = subprocess.Popen(
-                    [nvcc, *_flags(), "-shared", "-o", so, str(src)],
+                    [nvcc, *NVCC_FLAGS, "-shared", "-o", so, str(src)],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             logs = {stem: proc.communicate()[0] for stem, proc in procs.items()}
         finally:
@@ -129,16 +122,13 @@ def _build(paths: dict) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> types.SimpleNamespace:
-    """Build (if needed) and load the kernel libraries; their launch
-    functions, cached per process (set ``PROBLEMS_PER_BLOCK`` before the
-    first call)."""
-    if PROBLEMS_PER_BLOCK not in (2, 4):
-        raise ValueError(f"PROBLEMS_PER_BLOCK must be 2 or 4, got "
-                         f"{PROBLEMS_PER_BLOCK}")
-    paths = _lib_paths()
+def load(csrc: Path = CSRC,
+         build_dir: Path = BUILD_DIR) -> types.SimpleNamespace:
+    """Build (if needed) and load the kernel libraries of the sources in
+    ``csrc``; their launch functions, cached per process."""
+    paths = _lib_paths(csrc, build_dir)
     if not all(path.exists() for path in paths.values()):
-        _build(paths)
+        _build(paths, csrc)
     apg, qv = (ctypes.CDLL(str(paths[stem])) for stem in ("apg_fused",
                                                           "qv_traj"))
     apg.apg_fused_launch.argtypes = [ctypes.c_void_p] * 9 + [
@@ -163,11 +153,12 @@ def load() -> types.SimpleNamespace:
         fbt_cuda_error_string=apg.fbt_cuda_error_string)
 
 
-def build_log() -> str:
+def build_log(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> str:
     """The compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills) from the build of the current sources, or '' if not built here."""
+    spills) from the build of the sources in ``csrc``, or '' if not built
+    there."""
     return "".join(f"== {stem}.cu\n{path.with_suffix('.log').read_text()}"
-                   for stem, path in _lib_paths().items()
+                   for stem, path in _lib_paths(csrc, build_dir).items()
                    if path.with_suffix(".log").exists())
 
 

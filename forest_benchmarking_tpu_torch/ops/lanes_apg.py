@@ -350,9 +350,9 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
 
     Takes what :func:`apg_fused_reference` takes, as contiguous float32
     CUDA tensors, and returns the same (est_r, est_i) planes. ``dim`` is 4
-    (``kernels.PROBLEMS_PER_BLOCK`` problems per thread block; the kernel
-    also reads A^T, which is formed here) or 2 (sixteen per block). Adds one
-    to ``apg_fused.launches`` per launch."""
+    (four problems per thread block; the kernel also reads A^T, which is
+    formed here) or 2 (sixteen per block). Adds one to
+    ``apg_fused.launches`` per launch."""
     if dim not in (2, 4):
         raise NotImplementedError(
             f"the CUDA fused solver is built for dim=2 (1Q) and dim=4 (2Q), "
@@ -388,12 +388,15 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
     out_i = torch.empty_like(rho0_i)
     lib = kernels.load()
     with torch.cuda.device(ar.device):
-        # the dim = 4 p pass reads A^T, coalesced over the rows (dim = 2
-        # does not read it)
-        at_r, at_i = ar.T.contiguous(), ai.T.contiguous()
+        # the dim = 4 p pass reads A^T, coalesced over the rows; the dim = 2
+        # kernel reads only A and gets null pointers
+        at_ptrs = (None, None)
+        if dim == 4:
+            at = (ar.T.contiguous(), ai.T.contiguous())   # alive to the launch
+            at_ptrs = tuple(x.data_ptr() for x in at)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.apg_fused_launch(
-            ar.data_ptr(), ai.data_ptr(), at_r.data_ptr(), at_i.data_ptr(),
+            ar.data_ptr(), ai.data_ptr(), *at_ptrs,
             n.data_ptr(), rho0_r.data_ptr(), rho0_i.data_ptr(),
             out_r.data_ptr(), out_i.data_ptr(), b, rows, dim,
             ctypes.byref(sched), stream)

@@ -6,7 +6,9 @@ tables and the loader's library names.
 The dim=4 parity-schedule comparison lives in test_torch_slice.py, so that
 the JAX CPU compiles run on different workers.
 """
+import importlib.util
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from oracles import np_proj_cp, np_proj_tp
 torch.set_num_threads(1)
 
 EPS64 = 1e-30
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _rand_herm_batch(rng, n, b):
@@ -246,22 +249,33 @@ def test_l2_bytes_per_solve(schedule, passes, problems_per_block):
     assert got == passes * 2_211_840 / problems_per_block
 
 
-def test_problems_per_block_is_a_build_flag(tmp_path):
-    """The dim = 4 kernel's problems per block reaches ``nvcc`` as a define,
-    and each value names its own library."""
-    before = kernels.PROBLEMS_PER_BLOCK
-    try:
-        names = set()
-        for p in (2, 4):
-            kernels.PROBLEMS_PER_BLOCK = p
-            assert f"-DAPG_PROBLEMS_PER_BLOCK={p}" in kernels._flags()
-            names.add(kernels._lib_paths()["apg_fused"].name)
-        assert len(names) == 2
-        kernels.PROBLEMS_PER_BLOCK = 3
-        with pytest.raises(ValueError, match="2 or 4"):
-            kernels.load()
-    finally:
-        kernels.PROBLEMS_PER_BLOCK = before
+def _script(path):
+    """The module of a script of the repository, imported from its file."""
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_smoke_check_counts_the_kernels_problems_per_block():
+    """chip_smoke.py's bytes of A per solve use the four problems a block
+    of the dim = 4 kernel holds."""
     src = (kernels.CSRC / "apg_fused.cu").read_text()
-    assert re.search(r"#define APG_PROBLEMS_PER_BLOCK (\d+)", src).group(1) \
-        == str(kernels.PROBLEMS_PER_BLOCK)
+    held = int(re.search(r"constexpr int PROBLEMS_2Q = (\d+);", src).group(1))
+    smoke = _script(ROOT / "chip_smoke.py")
+    assert smoke.PROBLEMS_PER_BLOCK_2Q == held == 4
+
+
+def test_barrier_variants_differ_in_the_dykstra_barrier_only():
+    """scripts/apg_barrier_ab.py builds the kernel source as it is and with
+    one line changed: the Dykstra barrier of the dim = 4 kernel."""
+    ab = _script(ROOT / "scripts" / "apg_barrier_ab.py")
+    src = (kernels.CSRC / "apg_fused.cu").read_text()
+    variants = ab.variant_sources(src)
+    assert variants["group"] == src
+    changed = [(x, y) for x, y in zip(src.splitlines(),
+                                      variants["block"].splitlines())
+               if x != y]
+    assert changed == [(f"  {ab.GROUP_LINE}", f"  {ab.BLOCK_LINE}")]
+    with pytest.raises(ValueError, match="once"):
+        ab.variant_sources(variants["block"])
