@@ -13,7 +13,9 @@ Phases, each of which must pass:
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
 2. build: compile the CUDA kernels from the sources in the checkout; print
    each kernel's registers and spills;
-3. kernel against plain version, both fused schedules, at B = 256, at
+3. kernel against plain version, both fused schedules, at B = 256 (with a
+   third schedule there that uses the (outer, dykstra, sweeps, sweeps_rest)
+   phase form and ``final_sweeps_rest``), at
    B = 253 (not a multiple of the four problems per block: the last block
    runs empty slots) and at the main path's B = 16384: the kernel's f32 result,
    the plain PyTorch version's f32 result and its f64 result, all on the
@@ -45,7 +47,12 @@ Phases, each of which must pass:
    version and 1e-5 of the plain f64 version. Trajectory: more than 97% of
    trajectories within 1e-4 of the plain f32 version (the rest flip a branch
    where u is within f32 round-off of a cumulative sum), columns summing to
-   1 within 1e-5;
+   1 within 1e-5. Then, on a generator of their own, the trajectory kernel
+   at depths 2, 3, 5, 9 and 10 and with K = 1 and K = 32 operators (random
+   CPTP stacks), small C and T, under the same bar; and at depths 5, 8 and
+   10, T = 500: the kernel run on the first 256 and on the first 7
+   uniforms gives bitwise the first columns of the run on all 500 (a
+   column does not depend on its block-mates);
 7. the quantum-volume main path at full width through
    ``quantum_volume.sample_heavy_outputs_batched(device="cuda")``: depth 8,
    C = 1600 circuits, 1000 shots, ideal and with 2% depolarizing noise by
@@ -56,8 +63,12 @@ Phases, each of which must pass:
    on the card with the plain versions in place of the kernels;
 8. timing with CUDA events (one warm-up, median of 3) at C = 1600 (T = 1000)
    of each quantum-volume kernel alone (on laid-out inputs), of its wrapper
-   and of its plain version, with circuits/s, the bound and the share of the
-   bound; the full-size kernel-against-plain check uses these outputs. The
+   (and the wrapper's time beyond the kernel's) and of its plain version,
+   with circuits/s, the bound and the share of the bound; the full-size
+   kernel-against-plain check uses these outputs; the registers, spills and
+   stack of every depth instantiation of the trajectory kernel (ptxas); a
+   ``torch.profiler`` pass over the trajectory wrapper alone, which must
+   launch no matrix product (W and M' are formed in the kernel). The
    Haar draw of a depth-8 call (Gram-Schmidt) beside ``torch.linalg.qr``
    on a draw of the same size (one warm-up, one run). Then
    ``quantum_volume.measure_quantum_volume_batched(max_depth=8,
@@ -129,6 +140,7 @@ printing no result, if CUDA is unavailable or any phase fails.
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -143,6 +155,11 @@ SHOTS = 2000
 CHECK_BATCH = 256
 TAIL_BATCH = 253       # not a multiple of PROBLEMS_PER_BLOCK_2Q
 SCHEDULES = ("headline", "parity")
+# a schedule with the JAX package's (outer, dykstra, sweeps, sweeps_rest)
+# phase form and final_sweeps_rest, held to the same bar at B = 256
+SPLIT_SCHEDULE = dict(phases=((4, 2, 1, 0), (3, 1, 1), (3, 3, 2, 1)),
+                      init_iters=2, init_sweeps=3, final_iters=3,
+                      final_sweeps=2, final_sweeps_rest=1, mu=1.5 / 32)
 QV_DEPTH = 8
 QV_CIRCUITS = 1600
 QV_SHOTS = 1000
@@ -150,6 +167,12 @@ QV_TRAJ = 1000
 QV_DEPOL = 0.02
 QV_CHECK_C = 16        # circuits of the phase-6 check
 QV_CHECKS = ((QV_DEPTH, 256), (QV_DEPTH - 1, 256), (QV_DEPTH, 500))
+# the trajectory kernel's further checks, on a generator of their own:
+# (depth, circuits, trajectories, Kraus operators; 16 = depolarizing)
+QV_TRAJ_CHECKS = ((2, 16, 256, 16), (3, 16, 256, 16), (5, 16, 256, 16),
+                  (9, 8, 128, 16), (10, 4, 64, 16), (QV_DEPTH, 16, 256, 1),
+                  (QV_DEPTH, 16, 256, 32), (10, 4, 64, 32))
+QV_TAIL = (5, 8, 10)   # depths of the bitwise check of a part-full block
 ROUTE_BATCH = 256      # problems of each per-problem route in phase 11
 CP_SWEEPS = 6
 PROBLEMS_PER_BLOCK_2Q = 4   # PROBLEMS_2Q of csrc/apg_fused.cu
@@ -334,6 +357,31 @@ def qv_inputs(quantum_volume, haar_rand_unitary, gen, depth, circuits,
     return perms, gates, uniforms
 
 
+def random_kraus(haar_rand_unitary, gen, n_kraus: int) -> torch.Tensor:
+    """A random CPTP stack of ``n_kraus`` 4x4 operators: the blocks of the
+    first four columns of a Haar unitary of side 4K."""
+    u = haar_rand_unitary(gen, 4 * n_kraus, dtype=torch.float32)
+    return u[:, :4].reshape(n_kraus, 4, 4).contiguous()
+
+
+def traj_ptxas(log: str) -> dict:
+    """{depth: (registers, spill stores, spill loads, stack bytes)} of the
+    trajectory kernel's instantiations in a ``-Xptxas -v`` build log."""
+    out, depth, props = {}, None, (0, 0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"traj_probs_kernelILi(\d+)E", line)
+            depth = int(m.group(1)) if m else None
+        elif depth is not None and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            props = (nums[1], nums[2], nums[0])
+        elif depth is not None and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out[depth] = (regs, *props)
+            depth = None
+    return dict(sorted(out.items()))
+
+
 def traj_agreement(kern: torch.Tensor, plain: torch.Tensor):
     """(share of trajectories within 1e-4 of the plain version, the largest
     deviation over those, the largest over all, the largest column-sum error
@@ -396,8 +444,8 @@ def main() -> int:
     for batch, g_chk in ((CHECK_BATCH, gen), (TAIL_BATCH, torch.Generator(
             device=dev).manual_seed(SEED + 4))):
         n_chk, _ = synth_process_datasets(g_chk, in32.a, 4, batch, SHOTS)
-        for name in SCHEDULES:
-            cfg = configs[name]
+        for name in SCHEDULES + (("split",) if batch == CHECK_BATCH else ()):
+            cfg = configs.get(name, SPLIT_SCHEDULE)
             kern = lanes_apg.apg_fused(in32.a, n_chk, 4, a_pinv=in32.a_pinv,
                                        **cfg)
             against_plain(lanes_apg, name, kern, in32, in64, n_chk, cfg)
@@ -530,6 +578,36 @@ def main() -> int:
               f"column-sum error {norm:.3e}")
         check(share > 0.97 and norm < 1e-5,
               f"traj_probs depth {depth}: {share:.4f} agree, sums {norm:.3e}")
+    # every depth layout, K = 1 and 32, on a generator of their own (the
+    # later phases draw from `gen` what they drew before)
+    g_qv = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for depth, circuits, n_traj, n_kraus in QV_TRAJ_CHECKS:
+        perms, gates, uni = qv_inputs(quantum_volume, haar_rand_unitary,
+                                      g_qv, depth, circuits, n_traj)
+        ops = (kraus if n_kraus == kraus.shape[0]
+               else random_kraus(haar_rand_unitary, g_qv, n_kraus))
+        kern = pallas_traj.traj_probs_kernel(perms, gates, ops, uni, depth)
+        plain = pallas_traj.traj_probs_reference(perms, gates, ops, uni,
+                                                 depth)
+        share, dev_max, dev_all, norm = traj_agreement(kern, plain)
+        print(f"check traj_probs: depth {depth} C={circuits} T={n_traj} "
+              f"K={n_kraus} within 1e-4: {100 * share:.2f}% (max there "
+              f"{dev_max:.3e}, over all {dev_all:.3e}) column-sum error "
+              f"{norm:.3e}")
+        check(share > 0.97 and norm < 1e-5, f"traj_probs depth {depth} "
+              f"K={n_kraus}: {share:.4f} agree, sums {norm:.3e}")
+    # a trajectory's column does not depend on its block-mates
+    for depth in QV_TAIL:
+        perms, gates, uni = qv_inputs(quantum_volume, haar_rand_unitary,
+                                      g_qv, depth, 4, 500)
+        full = pallas_traj.traj_probs_kernel(perms, gates, kraus, uni, depth)
+        same = [torch.equal(pallas_traj.traj_probs_kernel(
+            perms, gates, kraus, uni[..., :t].contiguous(), depth),
+            full[..., :t]) for t in (256, 7)]
+        print(f"check traj_probs: depth {depth} T=500, the first 256 and 7 "
+              f"columns rerun alone bitwise equal: {same}")
+        check(all(same), f"traj_probs depth {depth}: a column depends on "
+              f"its block-mates")
 
     # 7. the quantum-volume main path at full width
     def heavy_path(seed, noisy):
@@ -595,8 +673,8 @@ def main() -> int:
         nbytes(perms, gates, kern_i))
     traj_in = pallas_traj._traj_kernel_inputs(perms, gates, kraus, uni,
                                               QV_DEPTH)
-    ms_t, kern_t = cuda_ms(lambda: pallas_traj._traj_launch(
-        *traj_in, QV_DEPTH, kraus.shape[0]))
+    ms_t, kern_t = cuda_ms(lambda: pallas_traj._traj_launch(*traj_in,
+                                                            QV_DEPTH))
     ms_tw, _ = cuda_ms(lambda: pallas_traj.traj_probs_kernel(
         perms, gates, kraus, uni, QV_DEPTH))
     torch.cuda.reset_peak_memory_stats()
@@ -614,7 +692,8 @@ def main() -> int:
         print(f"timing {name}: depth {QV_DEPTH} C={QV_CIRCUITS}"
               f"{f' T={QV_TRAJ}' if name == 'traj_probs' else ''} kernel "
               f"{ms_k:.3f} ms ({QV_CIRCUITS / ms_k * 1e3:.0f} circuits/s), "
-              f"wrapper {ms_w:.3f} ms, plain {ms_p:.3f} ms "
+              f"wrapper {ms_w:.3f} ms (wrapper - kernel {ms_w - ms_k:.3f} "
+              f"ms), plain {ms_p:.3f} ms "
               f"({QV_CIRCUITS / ms_p * 1e3:.0f} circuits/s); bound "
               f"{bound[0]:.3f} ms ({bound[1]}), kernel at "
               f"{100 * bound[0] / ms_k:.1f}% of it, on {card}")
@@ -627,6 +706,12 @@ def main() -> int:
     check(share_t > 0.97 and norm_t < 1e-5,
           f"traj_probs at full width: {share_t:.4f} agree, sums {norm_t:.3e}")
     del kern_t, plain_t, traj_in
+    traj_regs = traj_ptxas(kernels.build_log())
+    print("ptxas traj_probs_kernel<depth>: " + "; ".join(
+        f"{d}: {r} registers, {st}/{ld} B spill stores/loads, {sf} B stack"
+        for d, (r, st, ld, sf) in traj_regs.items()))
+    check(sorted(traj_regs) == list(range(2, 11)),
+          f"trajectory kernel instantiations {sorted(traj_regs)}")
 
     # the Haar draw of one depth-8 call, against the library QR it replaces
     batch = (QV_CIRCUITS, QV_DEPTH, QV_DEPTH // 2)
@@ -656,6 +741,27 @@ def main() -> int:
     # where the time of one main-path call goes
     from torch.profiler import ProfilerActivity, profile
 
+    def is_matmul(e):
+        key = e.key.lower()
+        return key in ("aten::mm", "aten::bmm", "aten::matmul") or (
+            e.device_type == torch.autograd.DeviceType.CUDA
+            and "gemm" in key)
+
+    # the trajectory wrapper alone launches no matrix product: W and M'
+    # are formed in the kernel
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pallas_traj.traj_probs_kernel(perms, gates, kraus, uni, QV_DEPTH)
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    launched = sorted(e.key[:48] for e in ev if e.device_type
+                      == torch.autograd.DeviceType.CUDA)
+    products = sum(e.count for e in ev if is_matmul(e))
+    print(f"profile traj_probs wrapper: device kernels {launched}; "
+          f"matrix-product calls and launches: {products}")
+    check(products == 0, f"the trajectory wrapper ran {products} matrix "
+          "products")
+
     for name, kw in (("ideal", {}), ("noisy", dict(
             kraus=kraus, noisy_method="trajectory",
             num_trajectories=QV_TRAJ))):
@@ -671,7 +777,8 @@ def main() -> int:
                      key=lambda e: e.self_device_time_total, reverse=True)
         busy = sum(e.self_device_time_total for e in gpu) / 1e3
         print(f"profile QV {name}: {sum(e.count for e in gpu)} kernel "
-              f"launches, device busy {busy:.3f} ms")
+              f"launches, device busy {busy:.3f} ms, matrix-product launches "
+              f"{sum(e.count for e in gpu if is_matmul(e))}")
         for e in gpu[:5]:
             print(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
                   f"x{e.count:<6d} {e.key[:64]}")
@@ -883,7 +990,8 @@ def main() -> int:
         dict(record("traj_probs", qv_src,
                     "forest_benchmarking_tpu/ops/pallas_traj.py:301",
                     qv_launches["traj_probs"], err_t, ms_t, ms_tp, traj_bound),
-             agree_share=share_t, max_abs_err_all=err_t_all),
+             agree_share=share_t, max_abs_err_all=err_t_all, wrapper_ms=ms_tw,
+             registers={d: r[0] for d, r in traj_regs.items()}),
         record("ideal_probs", qv_src,
                "forest_benchmarking_tpu/ops/pallas_traj.py:410",
                qv_launches["ideal_probs"], err_i, ms_i, ms_ip, ideal_bound),

@@ -13,13 +13,20 @@
 // (ops/pallas_eigh.py) in forest_benchmarking_tpu_torch:
 //
 //   est = Dykstra(rho0)                       (init_iters, init_sweeps)
-//   for each phase (outer, dykstra, sweeps), outer times:
+//   for each phase (outer, dykstra, sweeps, sweeps_rest), outer times:
 //     t' = (1 + sqrt(1 + 4 t^2)) / 2,  y = est + (t - 1)/t' (est - prev)
 //     z  = y - (1/mu) grad(y),  grad = -A_r^T eta + i A_i^T eta,
 //          eta = n / max(Re(A vec y), 1e-6)
-//     cand = Dykstra(z)                       (dykstra, sweeps)
+//     cand = Dykstra(z)                       (dykstra, sweeps, sweeps_rest)
 //     restart: t = 1 if cost(cand) > cost(est) else t'
-//   return Dykstra(est)                       (final_iters, final_sweeps)
+//   return Dykstra(est)             (final_iters, final_sweeps, final_sweeps_rest)
+//
+// A Dykstra projection runs `sweeps` Jacobi sweeps in its first iteration
+// and `sweeps_rest` in each later one (the JAX package's optional fourth
+// phase entry and `final_sweeps_rest`; equal to `sweeps` unless given).
+// Both kernels are built twice, and the launcher takes the build with
+// SPLIT only for a schedule where the two differ: the other keeps the
+// Dykstra loop as it was, one sweep count live (the shipped schedules).
 //
 // Dykstra alternates the CP projection (rotate H into the carried eigenbasis
 // V, run cyclic-Jacobi sweeps, clip negative eigenvalues, reconstruct) and
@@ -72,13 +79,27 @@
 
 #define APG_MAX_PHASES 8  // must match MAX_PHASES in kernels/__init__.py
 
-struct ApgSchedule {
+// The schedule as the host lays it out: the phases, then the sweep counts
+// of the Dykstra iterations after the first. The kernels take the two
+// parts as separate arguments, so that a build without SPLIT has the
+// parameters, and the code, of a schedule with one sweep count.
+struct ApgPhases {
   int n_phases;
   int outer[APG_MAX_PHASES];
   int dykstra[APG_MAX_PHASES];
   int sweeps[APG_MAX_PHASES];
   int init_iters, init_sweeps, final_iters, final_sweeps;
   float inv_mu;
+};
+
+struct ApgSweepsRest {
+  int sweeps_rest[APG_MAX_PHASES];
+  int final_sweeps_rest;
+};
+
+struct ApgSchedule {
+  ApgPhases phases;
+  ApgSweepsRest rest;
 };
 
 namespace {
@@ -346,10 +367,13 @@ __device__ void proj_tp(Mats<D>& s, int l, float xr, float xi, float& out_r,
 }
 
 // `iters` Dykstra iterations (CP then TP) on the matrix whose entry l is
-// (zr, zi); ends on the TP half-step. The result replaces (zr, zi).
-template <int D, class Sync = BlockSync>
+// (zr, zi), with `sweeps` Jacobi sweeps each; with SPLIT, the iterations
+// after the first run `sweeps_rest`. Ends on the TP half-step. The result
+// replaces (zr, zi).
+template <int D, bool SPLIT = false, class Sync = BlockSync>
 __device__ void dykstra(Mats<D>& s, const Pairs<D>& pairs, int l, int iters,
-                        int sweeps, float& zr, float& zi, Sync sync = Sync()) {
+                        int sweeps, int sweeps_rest, float& zr, float& zi,
+                        Sync sync = Sync()) {
   float cp_r = 0.f, cp_i = 0.f, tp_r = 0.f, tp_i = 0.f;
   float st_r = zr, st_i = zi;
   for (int it = 0; it < iters; ++it) {
@@ -358,7 +382,8 @@ __device__ void dykstra(Mats<D>& s, const Pairs<D>& pairs, int l, int iters,
     s.si[l] = pre_i;
     sync();
     float pos_r, pos_i;
-    warm_cp<D>(s, pairs, sweeps, l, pos_r, pos_i, sync);
+    warm_cp<D>(s, pairs, SPLIT && it > 0 ? sweeps_rest : sweeps, l, pos_r,
+               pos_i, sync);
     cp_r = pos_r - pre_r;
     cp_i = pos_i - pre_i;
     const float pre2_r = pos_r - tp_r, pre2_i = pos_i - tp_i;
@@ -545,7 +570,7 @@ __device__ void grad_2q(Shared2q<P>& sh, const float* __restrict__ a_r,
   g_i = ti;
 }
 
-template <int P>
+template <int P, bool SPLIT>
 __global__ void __launch_bounds__(THREADS * P, 1)
     apg_fused_kernel(const float* __restrict__ a_r,
                      const float* __restrict__ a_i,
@@ -555,7 +580,8 @@ __global__ void __launch_bounds__(THREADS * P, 1)
                      const float* __restrict__ rho0_r,
                      const float* __restrict__ rho0_i,
                      float* __restrict__ out_r, float* __restrict__ out_i,
-                     int batch, int rows, const ApgSchedule sch) {
+                     int batch, int rows, const ApgPhases sch,
+                     const ApgSweepsRest rest) {
   constexpr int NN = Dims<4>::NN;
   extern __shared__ __align__(16) unsigned char smem2q[];
   Shared2q<P>& sh = *reinterpret_cast<Shared2q<P>*>(smem2q);
@@ -585,8 +611,8 @@ __global__ void __launch_bounds__(THREADS * P, 1)
   // Dykstra touches only the group's own matrices: its barriers are the
   // group's; the passes over A between two projections are block-wide
   const GroupSync gsync{1 + g};
-  dykstra<4>(s, sh.pairs, l, sch.init_iters, sch.init_sweeps, est_r, est_i,
-             gsync);
+  dykstra<4>(s, sh.pairs, l, sch.init_iters, sch.init_sweeps,
+             sch.init_sweeps, est_r, est_i, gsync);
 
   float prev_r = est_r, prev_i = est_i;
   float tk = 1.f;
@@ -605,8 +631,8 @@ __global__ void __launch_bounds__(THREADS * P, 1)
       grad_2q<P>(sh, a_r, a_i, seta, rows, t, g_r, g_i);
       float z_r = y_r - sch.inv_mu * g_r;
       float z_i = y_i - sch.inv_mu * g_i;
-      dykstra<4>(s, sh.pairs, l, sch.dykstra[ph], sch.sweeps[ph], z_r, z_i,
-                 gsync);
+      dykstra<4, SPLIT>(s, sh.pairs, l, sch.dykstra[ph], sch.sweeps[ph],
+                        rest.sweeps_rest[ph], z_r, z_i, gsync);
       const float new_cost = cost_2q<P>(sh, at_r, at_i, sn, rows, t, z_r,
                                         z_i);
       // O'Donoghue-Candes function restart
@@ -618,8 +644,8 @@ __global__ void __launch_bounds__(THREADS * P, 1)
       old_cost = new_cost;
     }
   }
-  dykstra<4>(s, sh.pairs, l, sch.final_iters, sch.final_sweeps, est_r, est_i,
-             gsync);
+  dykstra<4, SPLIT>(s, sh.pairs, l, sch.final_iters, sch.final_sweeps,
+                    rest.final_sweeps_rest, est_r, est_i, gsync);
   if (live) {
     out_r[b * NN + l] = est_r;
     out_i[b * NN + l] = est_i;
@@ -663,6 +689,7 @@ __device__ float a_pass_1q(const Mats<2>& s, const float* sar, const float* sai,
   return -part;
 }
 
+template <bool SPLIT>
 __global__ void __launch_bounds__(THREADS)
     apg_fused_1q_kernel(const float* __restrict__ a_r,
                         const float* __restrict__ a_i,
@@ -670,7 +697,8 @@ __global__ void __launch_bounds__(THREADS)
                         const float* __restrict__ rho0_r,
                         const float* __restrict__ rho0_i,
                         float* __restrict__ out_r, float* __restrict__ out_i,
-                        int batch, int rows, const ApgSchedule sch) {
+                        int batch, int rows, const ApgPhases sch,
+                        const ApgSweepsRest rest) {
   using C = Dims<2>;
   constexpr int NN = C::NN, P = C::P;
   __shared__ Mats<2> mats[P];
@@ -705,7 +733,8 @@ __global__ void __launch_bounds__(THREADS)
   float est_r = live ? rho0_r[b * NN + l] : 0.f;
   float est_i = live ? rho0_i[b * NN + l] : 0.f;
   // every shared buffer above is read only after the first __syncthreads
-  dykstra<2>(s, pairs, l, sch.init_iters, sch.init_sweeps, est_r, est_i);
+  dykstra<2>(s, pairs, l, sch.init_iters, sch.init_sweeps, sch.init_sweeps,
+             est_r, est_i);
 
   float prev_r = est_r, prev_i = est_i;
   float tk = 1.f;
@@ -733,7 +762,8 @@ __global__ void __launch_bounds__(THREADS)
       const float g_r = -sum_r;
       float z_r = y_r - sch.inv_mu * g_r;
       float z_i = y_i - sch.inv_mu * g_i;
-      dykstra<2>(s, pairs, l, sch.dykstra[ph], sch.sweeps[ph], z_r, z_i);
+      dykstra<2, SPLIT>(s, pairs, l, sch.dykstra[ph], sch.sweeps[ph],
+                        rest.sweeps_rest[ph], z_r, z_i);
       s.sr[l] = z_r;
       s.si[l] = z_i;
       __syncthreads();
@@ -747,7 +777,8 @@ __global__ void __launch_bounds__(THREADS)
       old_cost = new_cost;
     }
   }
-  dykstra<2>(s, pairs, l, sch.final_iters, sch.final_sweeps, est_r, est_i);
+  dykstra<2, SPLIT>(s, pairs, l, sch.final_iters, sch.final_sweeps,
+                    rest.final_sweeps_rest, est_r, est_i);
   if (live) {
     out_r[b * NN + l] = est_r;
     out_i[b * NN + l] = est_i;
@@ -779,6 +810,58 @@ __global__ void __launch_bounds__(THREADS)
   out[b * NN + t] = make_float2(pos_r, pos_i);
 }
 
+// Whether a projection of the schedule runs another sweep count after its
+// first iteration. The kernels without SPLIT, which the shipped schedules
+// run, keep one sweep count less live through the Dykstra loop.
+bool splits(const ApgSchedule& sch) {
+  if (sch.rest.final_sweeps_rest != sch.phases.final_sweeps) return true;
+  for (int ph = 0; ph < sch.phases.n_phases; ++ph)
+    if (sch.rest.sweeps_rest[ph] != sch.phases.sweeps[ph]) return true;
+  return false;
+}
+
+template <bool SPLIT>
+cudaError_t launch_apg(const float* a_r, const float* a_i, const float* at_r,
+                       const float* at_i, const float* n, const float* rho0_r,
+                       const float* rho0_i, float* out_r, float* out_i,
+                       int batch, int rows, int dim, const ApgSchedule& sch,
+                       cudaStream_t st) {
+  cudaError_t err;
+  if (dim == 4) {
+    // at_r/at_i: A^T, (256, rows) planes, read by the p pass
+    constexpr int P = PROBLEMS_2Q;
+    const size_t dyn = shared2q_head<P>() +
+                       2 * P * static_cast<size_t>(rows) * sizeof(float);
+    err = cudaFuncSetAttribute(apg_fused_kernel<P, SPLIT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dyn));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, so that no later check reports it
+      return err;
+    }
+    apg_fused_kernel<P, SPLIT><<<(batch + P - 1) / P, THREADS * P, dyn, st>>>(
+        a_r, a_i, at_r, at_i, n, rho0_r, rho0_i, out_r, out_i, batch, rows,
+        sch.phases, sch.rest);
+  } else if (dim == 2) {
+    constexpr int P = Dims<2>::P;
+    const size_t dyn = (2 * PAD_1Q + 2 * P) * static_cast<size_t>(rows) *
+                       sizeof(float);
+    err = cudaFuncSetAttribute(apg_fused_1q_kernel<SPLIT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dyn));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, so that no later check reports it
+      return err;
+    }
+    apg_fused_1q_kernel<SPLIT><<<(batch + P - 1) / P, THREADS, dyn, st>>>(
+        a_r, a_i, n, rho0_r, rho0_i, out_r, out_i, batch, rows, sch.phases,
+        sch.rest);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int apg_fused_launch(const float* a_r, const float* a_i,
@@ -789,39 +872,13 @@ extern "C" int apg_fused_launch(const float* a_r, const float* a_i,
                                 const ApgSchedule* sched, void* stream) {
   if (batch <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dim == 4) {
-    // at_r/at_i: A^T, (256, rows) planes, read by the p pass
-    constexpr int P = PROBLEMS_2Q;
-    const size_t dyn = shared2q_head<P>() +
-                       2 * P * static_cast<size_t>(rows) * sizeof(float);
-    err = cudaFuncSetAttribute(apg_fused_kernel<P>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(dyn));
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it, so that no later check reports it
-      return static_cast<int>(err);
-    }
-    apg_fused_kernel<P><<<(batch + P - 1) / P, THREADS * P, dyn, st>>>(
-        a_r, a_i, at_r, at_i, n, rho0_r, rho0_i, out_r, out_i, batch, rows,
-        *sched);
-  } else if (dim == 2) {
-    constexpr int P = Dims<2>::P;
-    const size_t dyn = (2 * PAD_1Q + 2 * P) * static_cast<size_t>(rows) *
-                       sizeof(float);
-    err = cudaFuncSetAttribute(apg_fused_1q_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(dyn));
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it, so that no later check reports it
-      return static_cast<int>(err);
-    }
-    apg_fused_1q_kernel<<<(batch + P - 1) / P, THREADS, dyn, st>>>(
-        a_r, a_i, n, rho0_r, rho0_i, out_r, out_i, batch, rows, *sched);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      splits(*sched)
+          ? launch_apg<true>(a_r, a_i, at_r, at_i, n, rho0_r, rho0_i, out_r,
+                             out_i, batch, rows, dim, *sched, st)
+          : launch_apg<false>(a_r, a_i, at_r, at_i, n, rho0_r, rho0_i, out_r,
+                              out_i, batch, rows, dim, *sched, st);
+  return static_cast<int>(err);
 }
 
 extern "C" int cp_project_launch(const void* h, void* out, int batch,

@@ -34,7 +34,8 @@ MAX_PHASES = 8   # must match APG_MAX_PHASES in csrc/apg_fused.cu
 
 
 class ApgSchedule(ctypes.Structure):
-    """Host mirror of ``struct ApgSchedule`` in ``csrc/apg_fused.cu``."""
+    """Host mirror of ``struct ApgSchedule`` in ``csrc/apg_fused.cu``: its
+    two parts, ``ApgPhases`` and ``ApgSweepsRest``, end to end."""
     _fields_ = [
         ("n_phases", ctypes.c_int),
         ("outer", ctypes.c_int * MAX_PHASES),
@@ -45,6 +46,8 @@ class ApgSchedule(ctypes.Structure):
         ("final_iters", ctypes.c_int),
         ("final_sweeps", ctypes.c_int),
         ("inv_mu", ctypes.c_float),
+        ("sweeps_rest", ctypes.c_int * MAX_PHASES),
+        ("final_sweeps_rest", ctypes.c_int),
     ]
 
 
@@ -137,7 +140,7 @@ def load(csrc: Path = CSRC,
     apg.cp_project_launch.argtypes = [ctypes.c_void_p] * 2 + [
         ctypes.c_int] * 2 + [ctypes.c_void_p]
     apg.cp_project_launch.restype = ctypes.c_int
-    qv.traj_probs_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    qv.traj_probs_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     qv.traj_probs_launch.restype = ctypes.c_int
     qv.ideal_probs_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [

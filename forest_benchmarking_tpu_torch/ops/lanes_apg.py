@@ -87,15 +87,17 @@ def _pair_index(n: int, device: torch.device):
     return rounds[..., 0], rounds[..., 1]
 
 
-def _check_schedule(phases, final_sweeps_rest) -> None:
-    if final_sweeps_rest is not None:
-        raise ValueError("final_sweeps_rest is not carried by the port: no "
-                         "shipped schedule uses it")
-    for phase in phases:
-        if len(phase) != 3:
-            raise ValueError(f"phase {phase!r} must be (outer_iters, "
-                             "dykstra_iters, jacobi_sweeps); the 4-tuple "
-                             "sweeps_rest form is not carried by the port")
+def _phase(phase) -> Tuple[int, int, int, int]:
+    """(outer_iters, dykstra_iters, sweeps, sweeps_rest) of a schedule
+    phase given as (outer_iters, dykstra_iters, sweeps[, sweeps_rest]), as
+    the JAX package takes it: the optional fourth entry sets the Jacobi
+    sweeps of every Dykstra iteration after the first (default ``sweeps``).
+    """
+    if len(phase) not in (3, 4):
+        raise ValueError(f"phase {phase!r} must be (outer_iters, "
+                         "dykstra_iters, jacobi_sweeps[, sweeps_rest])")
+    outer, ld, sweeps = phase[:3]
+    return outer, ld, sweeps, phase[3] if len(phase) == 4 else sweeps
 
 
 # ----------------------------------------------------------------------
@@ -226,13 +228,19 @@ def _restart(t_next, new_cost, old_cost):
     return torch.where(new_cost > old_cost, 1.0, t_next)
 
 
-def _dykstra(zr, zi, vr, vi, iters: int, sweeps: int, dim: int, eps: float):
-    """``iters`` Dykstra iterations (warm-V CP, then TP); ends on TP."""
+def _dykstra(zr, zi, vr, vi, iters: int, sweeps: int, dim: int, eps: float,
+             sweeps_rest: Optional[int] = None):
+    """``iters`` Dykstra iterations (warm-V CP, then TP); ends on TP. The
+    first runs ``sweeps`` Jacobi sweeps, the others ``sweeps_rest``
+    (default ``sweeps``; 0 reuses the eigenbasis as it is)."""
+    if sweeps_rest is None:
+        sweeps_rest = sweeps
     cp_ch_r = cp_ch_i = tp_ch_r = tp_ch_i = torch.zeros_like(zr)
     st_r, st_i = zr, zi
-    for _ in range(iters):
+    for it in range(iters):
         pre_r, pre_i = st_r - cp_ch_r, st_i - cp_ch_i
-        cp_r, cp_i, vr, vi = _warm_cp(pre_r, pre_i, vr, vi, sweeps, eps)
+        cp_r, cp_i, vr, vi = _warm_cp(pre_r, pre_i, vr, vi,
+                                      sweeps if it == 0 else sweeps_rest, eps)
         cp_ch_r, cp_ch_i = cp_r - pre_r, cp_i - pre_i
         pre_r, pre_i = cp_r - tp_ch_r, cp_i - tp_ch_i
         st_r, st_i = _proj_tp(pre_r, pre_i, dim)
@@ -283,13 +291,16 @@ def apg_fused_reference(ar, ai, n, rho0_r, rho0_i, *, dim: int,
     :param n: (B, R) normalized counts, one row per problem.
     :param rho0_r, rho0_i: (B, d2, d2) starting matrices; they are
         Dykstra-projected before the first gradient step.
-    :param phases: static schedule of (outer_iters, dykstra_iters, sweeps).
+    :param phases: static schedule of (outer_iters, dykstra_iters, sweeps[,
+        sweeps_rest]) (see :func:`_phase`).
     :param init_iters/init_sweeps: Dykstra schedule projecting rho0.
-    :param final_iters/final_sweeps: the projection applied to the returned
-        estimate (ends on the TP half-step; exactly TP).
+    :param final_iters/final_sweeps/final_sweeps_rest: the projection
+        applied to the returned estimate (ends on the TP half-step; exactly
+        TP); its iterations after the first run ``final_sweeps_rest`` sweeps
+        (default ``final_sweeps``).
     :return: (est_r, est_i) planes of shape (B, d2, d2).
     """
-    _check_schedule(phases, final_sweeps_rest)
+    phases = [_phase(p) for p in phases]
     rdtype = ar.dtype
     eps_rot = 1e-30 if rdtype == torch.float64 else 1e-18
     eps_p = 1e-6
@@ -317,7 +328,7 @@ def apg_fused_reference(ar, ai, n, rho0_r, rho0_i, *, dim: int,
         prev_r, prev_i = est_r, est_i
         t = torch.ones(b, dtype=rdtype, device=ar.device)
         old_cost = cost(est_r, est_i)
-        for iters, ld, sweeps in phases:
+        for iters, ld, sweeps, srest in phases:
             for _ in range(iters):
                 t_next = (1 + torch.sqrt(1 + 4 * t * t)) / 2
                 beta = ((t - 1) / t_next)[:, None, None]
@@ -327,13 +338,15 @@ def apg_fused_reference(ar, ai, n, rho0_r, rho0_i, *, dim: int,
                 z_r = y_r - inv_mu * g_r
                 z_i = y_i - inv_mu * g_i
                 cand_r, cand_i, v_r, v_i = _dykstra(z_r, z_i, v_r, v_i, ld,
-                                                    sweeps, dim, eps_rot)
+                                                    sweeps, dim, eps_rot,
+                                                    srest)
                 new_cost = cost(cand_r, cand_i)
                 t = _restart(t_next, new_cost, old_cost)
                 prev_r, prev_i, est_r, est_i = est_r, est_i, cand_r, cand_i
                 old_cost = new_cost
         est_r, est_i, _, _ = _dykstra(est_r, est_i, v_r, v_i, final_iters,
-                                      final_sweeps, dim, eps_rot)
+                                      final_sweeps, dim, eps_rot,
+                                      final_sweeps_rest)
     return est_r, est_i
 
 
@@ -345,6 +358,7 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
                      phases: Sequence[Tuple[int, int, int]] = PARITY_PHASES,
                      init_iters: int = 8, init_sweeps: int = 3,
                      final_iters: int = 20, final_sweeps: int = 1,
+                     final_sweeps_rest: Optional[int] = None,
                      mu: Optional[float] = None):
     """Launch ``csrc/apg_fused.cu`` on PyTorch's current stream.
 
@@ -381,9 +395,12 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
         mu = 3.0 / (2 * dim ** 2)
     sched = kernels.ApgSchedule(
         n_phases=len(phases), init_iters=init_iters, init_sweeps=init_sweeps,
-        final_iters=final_iters, final_sweeps=final_sweeps, inv_mu=1.0 / mu)
-    for k, (outer, ld, sweeps) in enumerate(phases):
-        sched.outer[k], sched.dykstra[k], sched.sweeps[k] = outer, ld, sweeps
+        final_iters=final_iters, final_sweeps=final_sweeps,
+        final_sweeps_rest=(final_sweeps if final_sweeps_rest is None
+                           else final_sweeps_rest), inv_mu=1.0 / mu)
+    for k, phase in enumerate(phases):
+        (sched.outer[k], sched.dykstra[k], sched.sweeps[k],
+         sched.sweeps_rest[k]) = _phase(phase)
     out_r = torch.empty_like(rho0_r)
     out_i = torch.empty_like(rho0_i)
     lib = kernels.load()
@@ -411,6 +428,7 @@ def apg_fused_flops_per_solve(rows: int, dim: int = 4,
                               phases: Sequence[Tuple[int, int, int]] = PARITY_PHASES,
                               init_iters: int = 8, init_sweeps: int = 3,
                               final_iters: int = 20, final_sweeps: int = 1,
+                              final_sweeps_rest: Optional[int] = None,
                               mu: Optional[float] = None) -> float:
     """Floating-point operations of one fused solve as the CUDA kernel
     computes it (n = dim^2, R = ``rows``):
@@ -422,7 +440,8 @@ def apg_fused_flops_per_solve(rows: int, dim: int = 4,
       M = V^dag H V (two complex n x n products, 8 n^3 each), s Jacobi
       sweeps (n - 1 rounds of rotations of M's columns and rows and V's
       columns, ~36 n^2 per round), the reconstruction (8 n^3) and the TP
-      projection (~4 n^2).
+      projection (~4 n^2). The first iteration of a projection runs its
+      ``sweeps``, the others its ``sweeps_rest`` (:func:`_phase`).
 
     ``mu`` (the step) does not change the count; it is accepted so that a
     schedule dict can be passed whole.
@@ -434,11 +453,18 @@ def apg_fused_flops_per_solve(rows: int, dim: int = 4,
         return 2 * n * n + 16.0 * n ** 3 + sweeps * 36.0 * n * n * (n - 1) \
             + 8.0 * n ** 3 + 4 * n * n
 
+    def projection(iters, sweeps, sweeps_rest):
+        if iters == 0:
+            return 0.0
+        return per_dykstra(sweeps) + (iters - 1) * per_dykstra(sweeps_rest)
+
     total = _a_passes(phases) * per_pass
-    total += init_iters * per_dykstra(init_sweeps)
-    total += final_iters * per_dykstra(final_sweeps)
-    for iters, ld, sweeps in phases:
-        total += iters * ld * per_dykstra(sweeps)
+    total += projection(init_iters, init_sweeps, init_sweeps)
+    total += projection(final_iters, final_sweeps,
+                        final_sweeps if final_sweeps_rest is None
+                        else final_sweeps_rest)
+    for iters, ld, sweeps, srest in map(_phase, phases):
+        total += iters * projection(ld, sweeps, srest)
     return total
 
 
@@ -468,7 +494,8 @@ def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,
               final_iters: int = 20, final_sweeps: int = 1,
               final_sweeps_rest: Optional[int] = None,
               mu: Optional[float] = None,
-              a_pinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+              a_pinv: Optional[torch.Tensor] = None,
+              use_pallas: bool = True) -> torch.Tensor:
     """Fused-APG batched PGDB MLE: (R, d4) complex A-matrix (vec order),
     (B, R) counts -> (B, d2, d2) complex Choi estimates.
 
@@ -476,12 +503,15 @@ def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,
     with torch outside the solve, as the JAX package does outside its
     kernel), then runs the static-schedule solve: the CUDA kernel when the
     inputs are CUDA tensors (dim=2 or 4, complex64 A), the plain PyTorch
-    version when they are CPU tensors. ``a_pinv`` ((d4, R), optional) is a
+    version when they are CPU tensors. With ``use_pallas=False`` (the JAX
+    package's switch) the plain version runs wherever the tensors lie, the
+    card included, at any dtype and dim; with the default, CUDA inputs the
+    kernel does not take raise. ``a_pinv`` ((d4, R), optional) is a
     precomputed ``pinv(A)``; production callers compute it once per A-matrix.
 
     ``apg_fused.launches`` counts the kernel launches.
     """
-    _check_schedule(phases, final_sweeps_rest)
+    phases = tuple(map(_phase, phases))
     if n_counts.device != a.device:
         raise ValueError(f"counts on {n_counts.device} but A on {a.device}")
     d2 = dim * dim
@@ -492,12 +522,13 @@ def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,
         a_pinv = torch.linalg.pinv(a)
     rho0_r, rho0_i = linear_inversion_start(a_pinv, n_counts, dim)
     n_mat = n_counts.to(ar.dtype).contiguous()
-    kw = dict(dim=dim, phases=tuple(phases), init_iters=init_iters,
+    kw = dict(dim=dim, phases=phases, init_iters=init_iters,
               init_sweeps=init_sweeps, final_iters=final_iters,
-              final_sweeps=final_sweeps, mu=mu)
-    if a.is_cuda:
+              final_sweeps=final_sweeps, final_sweeps_rest=final_sweeps_rest,
+              mu=mu)
+    if a.is_cuda and use_pallas:
         est_r, est_i = apg_fused_kernel(ar, ai, n_mat, rho0_r, rho0_i, **kw)
-    elif a.device.type == "cpu":
+    elif a.is_cuda or a.device.type == "cpu":
         est_r, est_i = apg_fused_reference(ar, ai, n_mat, rho0_r, rho0_i, **kw)
     else:
         raise ValueError(f"unsupported device {a.device}")

@@ -11,9 +11,10 @@ The sweep is the fused APG solver's
 is the kernel's device code (``csrc/apg_fused.cu``).
 
 :func:`cp_project_pallas` runs the hand-written CUDA kernel for a complex64
-CUDA tensor and :func:`cp_project_reference` for a CPU tensor. The TPU-only
-arguments ``block`` and ``use_pallas`` of the JAX function are not carried:
-the kernel takes any batch size.
+CUDA tensor and :func:`cp_project_reference` for a CPU tensor, or wherever
+the tensor lies with ``use_pallas=False`` (the JAX function's switch). The
+TPU-only argument ``block`` is not carried: the kernel takes any batch
+size.
 """
 from __future__ import annotations
 
@@ -68,10 +69,13 @@ def cp_project_flops(sweeps: int = 6) -> float:
     return sweeps * 36.0 * N * N * (N - 1) + 8.0 * N ** 3
 
 
-def cp_project_pallas(h: torch.Tensor, sweeps: int = 6) -> torch.Tensor:
+def cp_project_pallas(h: torch.Tensor, sweeps: int = 6,
+                      use_pallas: bool = True) -> torch.Tensor:
     """CP projection (positive part) of a batch of 16x16 Hermitian matrices.
 
     :param h: (B, 16, 16) complex tensor, read as given (not hermitianized).
+    :param use_pallas: False runs :func:`cp_project_reference` wherever
+        ``h`` lies, the card included, at any complex dtype.
     :return: (B, 16, 16) positive parts, same dtype and device.
 
     On the card (complex64 only) this launches ``csrc/apg_fused.cu``'s
@@ -82,7 +86,7 @@ def cp_project_pallas(h: torch.Tensor, sweeps: int = 6) -> torch.Tensor:
     if h.dim() != 3 or tuple(h.shape[1:]) != (N, N):
         raise ValueError(f"h must have shape (B, {N}, {N}), got "
                          f"{tuple(h.shape)}")
-    if h.device.type == "cpu":
+    if h.device.type == "cpu" or (h.is_cuda and not use_pallas):
         return cp_project_reference(h, sweeps)
     if not h.is_cuda:
         raise ValueError(f"unsupported device {h.device}")

@@ -15,10 +15,11 @@ draws one branch with its Born weight from a uniform variate.
 
 - :func:`_boundary_maps` composes the per-layer index maps, so a layer
   starts with ONE gather psi[x] <- psi[h_l[x]].
-- :func:`_fused_channel_ops` is the host-side preparation shared by the
-  plain version and the kernel: W_k = K_k U (the gate fused into the
-  sampled Kraus operator) and M'_k = U^dag K_k^dag K_k U (the branch
-  weights from the pre-gate state), as the JAX package prepares them.
+- :func:`_fused_channel_ops` forms, for the plain version, W_k = K_k U
+  (the gate fused into the sampled Kraus operator) and
+  M'_k = U^dag K_k^dag K_k U (the branch weights from the pre-gate state),
+  as the JAX package prepares them. The trajectory kernel forms both
+  itself, per layer, from the gates and the Kraus stack.
 - :func:`traj_probs` and :func:`ideal_probs` dispatch: the CUDA kernels of
   ``csrc/qv_traj.cu`` for tensors on the card, the plain versions
   :func:`traj_probs_reference` and :func:`ideal_probs_reference` for tensors
@@ -43,9 +44,8 @@ __all__ = ["traj_probs_reference", "traj_probs_kernel", "traj_probs",
            "ideal_probs_reference", "ideal_probs_kernel", "ideal_probs",
            "traj_flops_per_circuit", "MIN_DEPTH", "MAX_DEPTH", "MAX_KRAUS"]
 
-MIN_DEPTH, MAX_DEPTH = 2, 10   # depths the CUDA kernels take
-MAX_KRAUS = 32                 # one warp lane per Kraus operator
-_WARPS = 8                     # states per block; WARPS in csrc/qv_traj.cu
+MIN_DEPTH, MAX_DEPTH = 2, 10   # depths the CUDA kernels take (QV_*_DEPTH)
+MAX_KRAUS = 32                 # one warp lane per Kraus operator (QV_MAX_KRAUS)
 
 
 def _bit_permute_indices(perm: torch.Tensor, depth: int) -> torch.Tensor:
@@ -262,9 +262,8 @@ def _traj_kernel_inputs(perms: torch.Tensor, gates: torch.Tensor,
                         kraus: torch.Tensor, uniforms: torch.Tensor,
                         depth: int):
     """Check the trajectory kernel's inputs and lay them out for it:
-    (C, d+1, 2^d) int32 index maps, (C, d, 4, d//2 * K * 16) float32 planes
-    (W real and imaginary as [slot][k][ab], M' real and imaginary as
-    [slot][ab][k]) and the contiguous uniforms."""
+    (C, d+1, 2^d) int32 index maps, and the contiguous gates, Kraus stack
+    and uniforms as given (the kernel forms W and M' itself)."""
     _check_depth(depth)
     c, slots, t = perms.shape[0], depth // 2, uniforms.shape[-1]
     n_kraus = kraus.shape[0]
@@ -277,27 +276,21 @@ def _traj_kernel_inputs(perms: torch.Tensor, gates: torch.Tensor,
     _check_cuda("uniforms", uniforms, dev, torch.float32, (c, depth, slots, t))
     if perms.device != dev or perms.shape != (c, depth, depth):
         raise ValueError(f"perms must be (C, depth, depth) on {dev}")
-    if c * -(-t // _WARPS) >= 2 ** 31:
-        raise ValueError(f"{c} circuits x {t} trajectories exceed the grid")
     hmaps = _boundary_maps(perms, depth).to(torch.int32).contiguous()
-    w, mp = _fused_channel_ops(gates, kraus)
-    w = w.reshape(c, depth, -1)
-    mt = mp.reshape(c, depth, slots, n_kraus, 16).transpose(-1, -2).reshape(
-        c, depth, -1)
-    planes = torch.stack([w.real, w.imag, mt.real, mt.imag], dim=2).contiguous()
-    return hmaps, planes, uniforms.contiguous()
+    return (hmaps, gates.contiguous(), kraus.contiguous(),
+            uniforms.contiguous())
 
 
-def _traj_launch(hmaps: torch.Tensor, planes: torch.Tensor,
-                 uniforms: torch.Tensor, depth: int,
-                 n_kraus: int) -> torch.Tensor:
+def _traj_launch(hmaps: torch.Tensor, gates: torch.Tensor,
+                 kraus: torch.Tensor, uniforms: torch.Tensor,
+                 depth: int) -> torch.Tensor:
     """One launch of the trajectory kernel on laid-out inputs; counts it."""
     c, t = hmaps.shape[0], uniforms.shape[-1]
     out = torch.empty((c, 2 ** depth, t), dtype=torch.float32,
                       device=hmaps.device)
     _launch(kernels.load().traj_probs_launch, hmaps.device, hmaps.data_ptr(),
-            planes.data_ptr(), uniforms.data_ptr(), out.data_ptr(), c, depth,
-            n_kraus, t)
+            gates.data_ptr(), kraus.data_ptr(), uniforms.data_ptr(),
+            out.data_ptr(), c, depth, kraus.shape[0], t)
     traj_probs.launches += 1
     return out
 
@@ -311,7 +304,7 @@ def traj_probs_kernel(perms: torch.Tensor, gates: torch.Tensor,
     and returns the (C, 2^depth, T) float32 probabilities. Adds one to
     ``traj_probs.launches`` per launch."""
     return _traj_launch(*_traj_kernel_inputs(perms, gates, kraus, uniforms,
-                                             depth), depth, kraus.shape[0])
+                                             depth), depth)
 
 
 def traj_probs(perms: torch.Tensor, gates: torch.Tensor, kraus: torch.Tensor,

@@ -18,8 +18,9 @@ at position i and the gates act at the static positions (j, j+1).
 Single-circuit functions are written as in the JAX package and batched over
 circuits with ``torch.func.vmap``. The ideal probabilities and the
 trajectory evolution go through :mod:`.ops.pallas_traj`: its CUDA kernels
-for tensors on the card, its plain versions for tensors on the CPU. The
-entry points run on the card unless the caller passes ``device="cpu"``.
+on the card at the depths they take, its plain versions elsewhere
+(:func:`_use_kernels`). The entry points run on the card unless the caller
+passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -154,6 +155,21 @@ def _simulate_qv_circuit_density_lifted(perms: torch.Tensor,
     return _density_probs(rho)
 
 
+def _use_kernels(depth: int, device: torch.device) -> bool:
+    """Whether the batched sampler takes the CUDA kernels of
+    :mod:`.ops.pallas_traj`: on the card, at every depth they take
+    (``MIN_DEPTH`` to ``MAX_DEPTH``), whatever ``dtype``. The kernels then
+    get complex64 gates and Kraus stack and float32 uniforms, and their
+    output is cast back to ``dtype``, as the JAX package's kernel path does.
+    Elsewhere -- on the CPU, or above ``MAX_DEPTH`` on the card -- the plain
+    versions run in ``dtype`` where the tensors lie, and no launch counter
+    moves. The port's counterpart of the JAX package's
+    ``_pallas_qv_routing``, which sends the depths its kernels do not take
+    (below 7 there) to the plain simulator."""
+    return (device.type == "cuda"
+            and pallas_traj.MIN_DEPTH <= depth <= pallas_traj.MAX_DEPTH)
+
+
 def _heavy_outputs(probs: torch.Tensor) -> torch.Tensor:
     """(C, 2^d) bool: outputs with greater-than-median ideal probability.
     The median of an even count is the mean of the two middle values, as
@@ -214,15 +230,24 @@ def sample_heavy_outputs_batched(generator: Optional[torch.Generator],
       must divide ``num_shots``; each trajectory gives num_shots / T shots;
     - ``noisy_method="auto"``: density at depth <= 6, trajectory above.
 
-    On the card the kernels compute in float32 and need ``dtype`` float32.
+    On the card the kernels compute in float32 at every ``dtype``
+    (:func:`_use_kernels`).
     """
     dev = _device(device)
     gen = _generator(generator, dev)
     cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    if _use_kernels(depth, dev):
+        ideal, trajectories = pallas_traj.ideal_probs, pallas_traj.traj_probs
+        kdtype = torch.float32
+    else:
+        ideal = pallas_traj.ideal_probs_reference
+        trajectories = pallas_traj.traj_probs_reference
+        kdtype = dtype
+    kcdtype = torch.complex64 if kdtype == torch.float32 else torch.complex128
     perms = _sample_perms(gen, num_circuits, depth)
     gates = haar_rand_unitary(gen, 4, batch=(num_circuits, depth, depth // 2),
                               dtype=dtype)
-    probs = pallas_traj.ideal_probs(perms, gates, depth).to(dtype)
+    probs = ideal(perms, gates.to(kcdtype), depth).to(dtype)
     heavy = _heavy_outputs(probs)
 
     if kraus is not None:
@@ -238,8 +263,9 @@ def sample_heavy_outputs_batched(generator: Optional[torch.Generator],
                 raise ValueError(f"num_trajectories ({t}) must divide "
                                  f"num_shots ({num_shots})")
             uniforms = torch.rand((num_circuits, depth, depth // 2, t),
-                                  generator=gen, device=dev, dtype=dtype)
-            traj = pallas_traj.traj_probs(perms, gates, kraus, uniforms, depth)
+                                  generator=gen, device=dev, dtype=kdtype)
+            traj = trajectories(perms, gates.to(kcdtype), kraus.to(kcdtype),
+                                uniforms, depth).to(dtype)
             # (C, 2^d, T) -> num_shots / T shots from each trajectory
             rows = traj.transpose(1, 2).reshape(num_circuits * t, -1)
             samples = torch.multinomial(rows, num_shots // t, replacement=True,

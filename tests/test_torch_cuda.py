@@ -176,12 +176,16 @@ def test_1q_kernel_against_plain_version(cuda, batch):
     torch.cuda.synchronize()
     assert lanes_apg.apg_fused.launches == before + 1
     rho0 = lanes_apg.linear_inversion_start(in32.a_pinv, n, 2)
-    one = dict(phases=((1, 1, 1),))
-    step_k = lanes_apg.apg_fused_kernel(in32.ar, in32.ai, n, *rho0, dim=2,
-                                        **one)
-    step_p = lanes_apg.apg_fused_reference(in32.ar, in32.ai, n, *rho0, dim=2,
-                                           **one)
-    assert (torch.complex(*step_k) - torch.complex(*step_p)).abs().max() < 1e-5
+    # one outer step, and one with the split sweep counts
+    for one in (dict(phases=((1, 1, 1),)),
+                dict(phases=((1, 3, 2, 0),), final_iters=3,
+                     final_sweeps_rest=0)):
+        step_k = lanes_apg.apg_fused_kernel(in32.ar, in32.ai, n, *rho0,
+                                            dim=2, **one)
+        step_p = lanes_apg.apg_fused_reference(in32.ar, in32.ai, n, *rho0,
+                                               dim=2, **one)
+        assert (torch.complex(*step_k)
+                - torch.complex(*step_p)).abs().max() < 1e-5
     plain32 = torch.complex(*lanes_apg.apg_fused_reference(
         in32.ar, in32.ai, n, *rho0, dim=2))
     rho0 = lanes_apg.linear_inversion_start(in64.a_pinv, n.double(), 2)
@@ -224,16 +228,28 @@ def test_cp_project_kernel_against_eigh(cuda, batch):
         pallas_eigh.cp_project_pallas(h.to(torch.complex128))
 
 
-def qv_case(cuda, depth, circuits=16, n_traj=256):
-    """Circuits, 2% two-qubit depolarizing Kraus stack and uniforms on the
-    card, drawn from a seeded generator."""
+def random_kraus(gen, n_kraus):
+    """A random CPTP stack of ``n_kraus`` 4x4 operators: the blocks of the
+    first four columns of a Haar unitary of side 4K (sum_k K_k^dag K_k =
+    I)."""
+    u = haar_rand_unitary(gen, 4 * n_kraus, dtype=torch.float32)
+    return u[:, :4].reshape(n_kraus, 4, 4).contiguous()
+
+
+def qv_case(cuda, depth, circuits=16, n_traj=256, n_kraus=None):
+    """Circuits, a Kraus stack and uniforms on the card, drawn from a
+    seeded generator: 2% two-qubit depolarizing noise (K = 16), or a random
+    CPTP stack of ``n_kraus`` operators."""
     gen = torch.Generator(device=cuda).manual_seed(depth)
     perms = quantum_volume._sample_perms(gen, circuits, depth)
     gates = haar_rand_unitary(gen, 4, batch=(circuits, depth, depth // 2),
                               dtype=torch.float32)
-    ks = depolarizing_kraus_map(0.02)
-    kraus = torch.tensor(np.stack([np.kron(a, b) for a in ks for b in ks]),
-                         dtype=torch.complex64, device=cuda)
+    if n_kraus is None:
+        ks = depolarizing_kraus_map(0.02)
+        kraus = torch.tensor(np.stack([np.kron(a, b) for a in ks for b in ks]),
+                             dtype=torch.complex64, device=cuda)
+    else:
+        kraus = random_kraus(gen, n_kraus)
     uniforms = torch.rand((circuits, depth, depth // 2, n_traj),
                           generator=gen, device=cuda)
     return perms, gates, kraus, uniforms
@@ -255,13 +271,18 @@ def test_ideal_kernel_against_plain_version(cuda, depth):
     assert (kern.double() - plain64).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("depth,n_traj", [(7, 256), (8, 256), (8, 500)])
-def test_traj_kernel_against_plain_version(cuda, depth, n_traj):
+@pytest.mark.parametrize("depth,n_traj,n_kraus", [
+    (2, 256, None), (3, 256, None), (5, 256, None), (7, 256, None),
+    (8, 256, None), (8, 500, None), (9, 128, None), (10, 64, None),
+    (8, 256, 1), (8, 256, 32), (10, 64, 32)])
+def test_traj_kernel_against_plain_version(cuda, depth, n_traj, n_kraus):
     """On the same uniforms, more than 97% of trajectories within 1e-4 of
     the plain f32 version (the rest flip a branch where u is within f32
     round-off of a cumulative sum), every column normalized to 1e-5; one
-    launch. T = 500 leaves the last block of 8 trajectories half full."""
-    perms, gates, kraus, uniforms = qv_case(cuda, depth, n_traj=n_traj)
+    launch. Every depth layout (odd ones too), K = 1, 16 and 32; T = 500
+    leaves the last block of 16 trajectories part full."""
+    perms, gates, kraus, uniforms = qv_case(cuda, depth, n_traj=n_traj,
+                                            n_kraus=n_kraus)
     before = pallas_traj.traj_probs.launches
     kern = pallas_traj.traj_probs(perms, gates, kraus, uniforms, depth)
     torch.cuda.synchronize()
@@ -277,3 +298,98 @@ def test_qv_entry_point_rejects_a_generator_elsewhere(cuda):
     with pytest.raises(ValueError, match="generator"):
         quantum_volume.sample_heavy_outputs_batched(
             torch.Generator(), 4, 2, 10, device=cuda)
+
+
+@pytest.mark.parametrize("depth", [5, 8, 10])
+def test_traj_columns_do_not_depend_on_block_mates(cuda, depth):
+    """A trajectory's column is bitwise the same whichever trajectories
+    share its block: the run on the first 256 uniforms, and on the first
+    7, gives bitwise the first columns of the run on T = 500."""
+    perms, gates, kraus, uniforms = qv_case(cuda, depth, circuits=4,
+                                            n_traj=500)
+    full = pallas_traj.traj_probs(perms, gates, kraus, uniforms, depth)
+    for t in (256, 7):
+        part = pallas_traj.traj_probs(perms, gates, kraus,
+                                      uniforms[..., :t].contiguous(), depth)
+        assert torch.equal(part, full[..., :t])
+
+
+def test_traj_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """Direct calls with inputs the kernel does not take raise (no fallback
+    to the plain version): complex128, more than 32 operators, depth 11."""
+    perms, gates, kraus, uniforms = qv_case(cuda, 4, circuits=2, n_traj=8)
+    with pytest.raises(TypeError, match="complex64"):
+        pallas_traj.traj_probs(perms, gates.to(torch.complex128),
+                               kraus.to(torch.complex128), uniforms.double(), 4)
+    many = torch.zeros((33, 4, 4), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="1 to 32 Kraus"):
+        pallas_traj.traj_probs(perms, gates, many, uniforms, 4)
+    with pytest.raises(ValueError, match="depths 2 to 10"):
+        pallas_traj.ideal_probs(perms, gates, 11)
+
+
+@pytest.mark.parametrize("depth,kernels_run", [(8, True), (11, False)])
+def test_qv_float64_on_the_card(cuda, depth, kernels_run):
+    """dtype float64 on the card: at depth 8 the kernels run on float32
+    casts (their counters move) and the counts come back in range; at depth
+    11, above what the kernels take, the plain versions run (counters stay
+    at 0)."""
+    ks = depolarizing_kraus_map(0.02)
+    kraus = np.stack([np.kron(a, b) for a in ks for b in ks])
+    pallas_traj.ideal_probs.launches = pallas_traj.traj_probs.launches = 0
+    counts = quantum_volume.sample_heavy_outputs_batched(
+        torch.Generator(device=cuda).manual_seed(depth), depth, 4, 20,
+        dtype=torch.float64, kraus=kraus, noisy_method="trajectory",
+        num_trajectories=10, device=cuda)
+    torch.cuda.synchronize()
+    moved = (pallas_traj.ideal_probs.launches,
+             pallas_traj.traj_probs.launches)
+    assert moved == ((1, 1) if kernels_run else (0, 0))
+    assert counts.shape == (4,) and bool(((counts >= 0) & (counts <= 20)).all())
+
+
+def test_apg_float64_plain_route_on_the_card(case):
+    """``use_pallas=False``: the plain version runs on the card in float64
+    (the kernel takes only float32) and agrees with the CPU plain f64 solve
+    to f64 round-off; no launch."""
+    _, in64, n = case
+    cfg = lanes_apg.HEADLINE_TUNED_2Q
+    n = n[:4].double()
+    before = lanes_apg.apg_fused.launches
+    on_card = lanes_apg.apg_fused(in64.a, n, 4, a_pinv=in64.a_pinv,
+                                  use_pallas=False, **cfg)
+    on_cpu = lanes_apg.apg_fused(in64.a.cpu(), n.cpu(), 4,
+                                 a_pinv=in64.a_pinv.cpu(), **cfg)
+    assert lanes_apg.apg_fused.launches == before
+    assert on_card.dtype == torch.complex128
+    assert (on_card.cpu() - on_cpu).abs().max().item() <= 1e-9
+
+
+def test_cp_project_float64_plain_route_on_the_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((8, 16, 16), generator=gen, device=cuda,
+                    dtype=torch.complex128)
+    h = (x + x.transpose(1, 2).conj()) / 2
+    before = pallas_eigh.cp_project_pallas.launches
+    out = pallas_eigh.cp_project_pallas(h, sweeps=6, use_pallas=False)
+    assert pallas_eigh.cp_project_pallas.launches == before
+    want = pallas_eigh.cp_project_reference(h.cpu(), 6)
+    assert (out.cpu() - want).abs().max().item() <= 1e-12
+
+
+SPLIT_2Q = dict(phases=((4, 2, 1, 0), (3, 1, 1), (3, 3, 2, 1)), init_iters=2,
+                init_sweeps=3, final_iters=3, final_sweeps=2,
+                final_sweeps_rest=1, mu=1.5 / 32)
+
+
+def test_kernel_split_sweeps_against_plain_version(cuda):
+    """A schedule with the 4-tuple phase form and ``final_sweeps_rest``, at
+    B = 256: the kernel's max deviation from the plain f64 solve is at most
+    twice the plain f32 solve's + 1e-5, as for the shipped schedules."""
+    a = process_tomo_A_matrix(2)
+    in32 = inputs_from_numpy(a, np.zeros((1, 1080)), device=cuda)
+    in64 = inputs_from_numpy(a, np.zeros((1, 1080)), device=cuda,
+                             dtype=torch.float64)
+    gen = torch.Generator(device=cuda).manual_seed(256)
+    n, _ = synth_process_datasets(gen, in32.a, 4, 256, 2000)
+    _hold_against_plain(in32, in64, n, SPLIT_2Q)

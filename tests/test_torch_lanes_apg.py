@@ -138,16 +138,95 @@ def test_apg_fused_headline_matches_jax(headline_case):
 
 
 def test_schedule_forms_not_carried_raise():
+    """The JAX package's schedule forms are carried: a phase is
+    (outer, dykstra_iters, sweeps) or (outer, dykstra_iters, sweeps,
+    sweeps_rest), and ``final_sweeps_rest`` is taken; a phase of another
+    length raises, in the wrapper and in the plain version."""
     a = torch.tensor(process_tomo_A_matrix(1))
     n = torch.full((1, 36), 1 / 36, dtype=torch.float64)
+    out = lanes_apg.apg_fused(a, n, 2, phases=((2, 1, 1, 0),),
+                              final_sweeps_rest=0)
+    assert out.shape == (1, 4, 4) and bool(torch.isfinite(out).all())
     with pytest.raises(ValueError, match="sweeps_rest"):
-        lanes_apg.apg_fused(a, n, 2, phases=((2, 1, 1, 0),))
-    with pytest.raises(ValueError, match="final_sweeps_rest"):
-        lanes_apg.apg_fused(a, n, 2, final_sweeps_rest=0)
+        lanes_apg.apg_fused(a, n, 2, phases=((2, 1),))
     z = torch.zeros(1, 4, 4, dtype=torch.float64)
     with pytest.raises(ValueError, match="sweeps_rest"):
         lanes_apg.apg_fused_reference(a.real, a.imag, n, z, z, dim=2,
-                                      phases=((2, 1, 1, 0),))
+                                      phases=((2, 1, 1, 0, 0),))
+
+
+SPLIT_SCHEDULE = dict(phases=((3, 2, 1, 0), (2, 1, 1), (2, 3, 2, 1)),
+                      init_iters=2, init_sweeps=3, final_iters=3,
+                      final_sweeps=2, final_sweeps_rest=1)
+
+
+def test_split_sweeps_match_jax():
+    """A schedule that uses both forms: phases with and without a fourth
+    entry (0 reuses the eigenbasis; 1 after 2), and ``final_sweeps_rest``.
+    The plain port against JAX ``apg_fused(use_pallas=False)`` in f64 on
+    the same counts, within 1e-9; the form changes the result (it is not
+    ignored), and ``iters == 0`` stays a no-op in the split case."""
+    a = process_tomo_A_matrix(1)
+    n, _ = synth_process_datasets(jax.random.PRNGKey(29), jnp.asarray(a), 2, 6,
+                                  2000, dtype=jnp.float64)
+    want = np.asarray(jax_lanes.apg_fused(jnp.asarray(a), n, dim=2,
+                                          use_pallas=False, **SPLIT_SCHEDULE))
+    inp = inputs_from_numpy(a, np.asarray(n), device="cpu",
+                            dtype=torch.float64)
+    got = lanes_apg.apg_fused(inp.a, inp.n, 2, **SPLIT_SCHEDULE)
+    assert np.max(np.abs(got.numpy() - want)) <= 1e-9
+    uniform = dict(SPLIT_SCHEDULE, phases=tuple(p[:3] for p in
+                                                SPLIT_SCHEDULE["phases"]),
+                   final_sweeps_rest=None)
+    other = lanes_apg.apg_fused(inp.a, inp.n, 2, **uniform)
+    assert np.max(np.abs(other.numpy() - want)) > 1e-6
+    no_op = dict(SPLIT_SCHEDULE, phases=((2, 0, 1, 0),), final_iters=0)
+    assert torch.equal(lanes_apg.apg_fused(inp.a, inp.n, 2, **no_op),
+                       lanes_apg.apg_fused(inp.a, inp.n, 2,
+                                           **dict(no_op, phases=((2, 0, 1),),
+                                                  final_sweeps_rest=None)))
+
+
+def test_split_sweeps_flop_count():
+    """The first Dykstra iteration of a projection is counted at its
+    ``sweeps``, the others at ``sweeps_rest``; the shipped schedules' count
+    is unchanged by the form."""
+    n = 16
+    sweep = 36.0 * n * n * (n - 1)
+    base = dict(phases=((2, 3, 2),), init_iters=0, final_iters=0)
+    split = dict(base, phases=((2, 3, 2, 0),))
+    assert (lanes_apg.apg_fused_flops_per_solve(1080, **base)
+            - lanes_apg.apg_fused_flops_per_solve(1080, **split)
+            == pytest.approx(2 * 2 * 2 * sweep))
+    fin = dict(phases=(), init_iters=0, final_iters=4, final_sweeps=3)
+    assert (lanes_apg.apg_fused_flops_per_solve(1080, **fin)
+            - lanes_apg.apg_fused_flops_per_solve(
+                1080, **fin, final_sweeps_rest=1)
+            == pytest.approx(3 * 2 * sweep))
+    cfg = lanes_apg.HEADLINE_TUNED_2Q
+    four = dict(cfg, phases=tuple(p + (p[2],) for p in cfg["phases"]),
+                final_sweeps_rest=cfg["final_sweeps"])
+    assert (lanes_apg.apg_fused_flops_per_solve(1080, **four)
+            == pytest.approx(lanes_apg.apg_fused_flops_per_solve(1080, **cfg)))
+
+
+@pytest.mark.parametrize("dim", [2, 4])
+def test_use_pallas_keyword_changes_nothing_on_the_cpu(dim):
+    """``use_pallas`` (the JAX package's switch) is accepted; on CPU
+    tensors both settings run the plain version, bitwise alike, and launch
+    nothing."""
+    a = process_tomo_A_matrix(dim // 2)
+    rng = np.random.default_rng(dim)
+    counts = rng.random((3, a.shape[0]))
+    inp = inputs_from_numpy(a, counts / counts.sum(1, keepdims=True),
+                            device="cpu", dtype=torch.float64)
+    cfg = dict(phases=((2, 1, 1),), init_iters=1, final_iters=1)
+    before = lanes_apg.apg_fused.launches
+    on = lanes_apg.apg_fused(inp.a, inp.n, dim, use_pallas=True, **cfg)
+    off = lanes_apg.apg_fused(inp.a, inp.n, dim, use_pallas=False, **cfg)
+    assert torch.equal(on, off)
+    assert torch.equal(on, lanes_apg.apg_fused(inp.a, inp.n, dim, **cfg))
+    assert lanes_apg.apg_fused.launches == before == 0
 
 
 def test_cuda_source_tables_match_python():
@@ -165,8 +244,12 @@ def test_cuda_source_tables_match_python():
     width = int(re.search(r"#define APG_MAX_PHASES (\d+)", src).group(1))
     assert width == kernels.MAX_PHASES
     fields = [f[0] for f in kernels.ApgSchedule._fields_]
-    struct = src.split("struct ApgSchedule {", 1)[1].split("};", 1)[0]
-    assert re.findall(r"(\w+)(?:\[APG_MAX_PHASES\])?[,;]", struct) == fields
+    parts = [src.split(f"struct {name} {{", 1)[1].split("};", 1)[0]
+             for name in ("ApgPhases", "ApgSweepsRest")]
+    assert src.split("struct ApgSchedule {", 1)[1].split("};", 1)[0].split() \
+        == ["ApgPhases", "phases;", "ApgSweepsRest", "rest;"]
+    assert [f for part in parts for f in re.findall(
+        r"(\w+)(?:\[APG_MAX_PHASES\])?[,;]", part)] == fields
 
 
 def test_library_name_follows_included_headers(tmp_path):

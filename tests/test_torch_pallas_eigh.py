@@ -48,6 +48,18 @@ def test_plain_version_matches_jax():
     np.testing.assert_allclose(got.numpy(), want, atol=1e-12)
 
 
+def test_use_pallas_keyword_changes_nothing_on_the_cpu():
+    """``use_pallas`` is accepted; on a CPU tensor both settings run the
+    plain version, bitwise alike, and launch nothing."""
+    h = torch.tensor(_herm_batch(5, 3))
+    before = pallas_eigh.cp_project_pallas.launches
+    on = pallas_eigh.cp_project_pallas(h, sweeps=3, use_pallas=True)
+    off = pallas_eigh.cp_project_pallas(h, sweeps=3, use_pallas=False)
+    assert torch.equal(on, off)
+    assert torch.equal(on, pallas_eigh.cp_project_reference(h, 3))
+    assert pallas_eigh.cp_project_pallas.launches == before == 0
+
+
 def test_jacobi_pos_part_matches_eigh():
     rng = np.random.RandomState(0)
     for _ in range(5):

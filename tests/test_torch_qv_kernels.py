@@ -229,7 +229,27 @@ def test_flop_count_drops_permutation_matmuls(depth, noiseless):
 
 
 def test_cuda_source_constants_match_python():
-    """The block width the wrapper sizes its grid with is the kernel's."""
+    """The depths and the Kraus count the wrappers check are those the
+    kernel source is built for (its launcher switches over the depths)."""
     src = (kernels.CSRC / "qv_traj.cu").read_text()
-    assert int(re.search(r"constexpr int WARPS = (\d+);", src).group(1)) \
-        == pallas_traj._WARPS
+
+    def define(name):
+        return int(re.search(rf"#define {name} (\d+)", src).group(1))
+
+    assert define("QV_MIN_DEPTH") == pallas_traj.MIN_DEPTH
+    assert define("QV_MAX_DEPTH") == pallas_traj.MAX_DEPTH
+    assert define("QV_MAX_KRAUS") == pallas_traj.MAX_KRAUS
+    cases = [int(d) for d in re.findall(r"QV_TRAJ_CASE\((\d+)\)", src)]
+    assert cases == list(range(pallas_traj.MIN_DEPTH,
+                               pallas_traj.MAX_DEPTH + 1))
+
+
+@pytest.mark.parametrize("device,depth,want", [
+    ("cpu", 8, False), ("cuda", 1, False), ("cuda", 2, True),
+    ("cuda", 8, True), ("cuda", 10, True), ("cuda", 11, False),
+    ("cuda", 12, False)])
+def test_qv_kernel_routing_rule(device, depth, want):
+    """The batched sampler takes the kernels on the card at the depths they
+    take, 2 to 10, whatever dtype, and the plain versions elsewhere."""
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    assert quantum_volume._use_kernels(depth, dev) is want
