@@ -12,7 +12,8 @@ Phases, each of which must pass:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
 2. build: compile the CUDA kernels from the sources in the checkout; print
-   each kernel's registers and spills;
+   each kernel's registers and spills, and a summary line for the one-qubit
+   fused kernel and the CP kernel;
 3. kernel against plain version, both fused schedules, at B = 256 (with a
    third schedule there that uses the (outer, dykstra, sweeps, sweeps_rest)
    phase form and ``final_sweeps_rest``), at
@@ -89,7 +90,12 @@ Phases, each of which must pass:
    plain f32 version on the host CPU and on the card differ as much on the
    same inputs, printed here), and leaves a few in ten thousand far from
    the physical set (counted in phase 10), where f32 cannot hold TP to
-   1e-5 (the plain f32 version neither); the maxima are printed;
+   1e-5 (the plain f32 version neither); the maxima are printed. Then the
+   same bar at B = 261 (``TAIL_BATCH_1Q``: the last block of sixteen
+   problems part empty, its last warp with one live half-warp), on a
+   generator of its own, and the first 5 and 17 of those problems solved
+   alone must be bitwise those of the B = 261 run (a problem does not
+   depend on its warp- or block-mates);
 10. the one-qubit main path: A from ``process_tomo_A_matrix(1)``,
    B = 16384 problems, 2000 shots, through
    ``tomography.pgdb_process_estimate_batched(dim=2, method="apg",
@@ -114,7 +120,13 @@ Phases, each of which must pass:
    sweeps=6)`` on the linear-inversion estimates of the config-2 main path
    (B = 256, then the main path at B = 16384 with the launch counter zeroed
    just before) and on Gaussian Hermitian matrices (B = 256): within 1e-4
-   of ``proj_choi_to_completely_positive`` in float64;
+   of ``proj_choi_to_completely_positive`` in float64; then, on a
+   generator of its own, B = 259 Gaussian matrices (``TAIL_BATCH_CP``: the
+   last block of eight matrices part empty): within 1e-4 of eigh in f64
+   after 6 sweeps and of the plain f32 version after 1 sweep (far from
+   converged: it holds the rotations to the plain version's round order),
+   and the first 3 and 9 matrices projected alone bitwise those of the
+   B = 259 run;
 13. CUDA-event timings at B = 16384 of the CP kernel, its plain version and
    the library route ``proj_choi_to_completely_positive`` (``torch.linalg.eigh``),
    with the bounds of both new kernels and their shares.
@@ -133,7 +145,8 @@ under 1e-4), with ``agree_share``, the share of trajectories that do, and
 the largest |kernel - plain f64| of the B = 16384 check, with the median
 and 99th percentile over problems; CP projection, the largest
 |kernel - eigh f64| at B = 16384, with ``library_ms`` the time of
-``proj_choi_to_completely_positive``. The last line
+``proj_choi_to_completely_positive``; both with ``registers`` and
+``spill_bytes`` (stores, loads) from ptxas. The last line
 is ``{"ok": true, ...}``. Exits non-zero,
 printing no result, if CUDA is unavailable or any phase fails.
 """
@@ -154,6 +167,8 @@ BATCH = 16384
 SHOTS = 2000
 CHECK_BATCH = 256
 TAIL_BATCH = 253       # not a multiple of PROBLEMS_PER_BLOCK_2Q
+TAIL_BATCH_1Q = 261    # odd, not a multiple of PROBLEMS_PER_BLOCK_1Q
+TAIL_BATCH_CP = 259    # not a multiple of CP_PER_BLOCK
 SCHEDULES = ("headline", "parity")
 # a schedule with the JAX package's (outer, dykstra, sweeps, sweeps_rest)
 # phase form and final_sweeps_rest, held to the same bar at B = 256
@@ -176,6 +191,8 @@ QV_TAIL = (5, 8, 10)   # depths of the bitwise check of a part-full block
 ROUTE_BATCH = 256      # problems of each per-problem route in phase 11
 CP_SWEEPS = 6
 PROBLEMS_PER_BLOCK_2Q = 4   # PROBLEMS_2Q of csrc/apg_fused.cu
+PROBLEMS_PER_BLOCK_1Q = 16  # PROBLEMS_1Q: one problem a half-warp
+CP_PER_BLOCK = 8            # CP_PER_BLOCK: one matrix a warp
 PEAK_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # the dim = 4 kernel with one problem per block, B = 16384, headline /
@@ -382,6 +399,20 @@ def traj_ptxas(log: str) -> dict:
     return dict(sorted(out.items()))
 
 
+def kernel_ptxas(log: str, name: str):
+    """(registers, spill stores, spill loads) of the first instantiation of
+    the kernel ``name`` in a ``-Xptxas -v`` build log."""
+    found, spill = False, None
+    for line in log.splitlines():
+        found = found or ("Compiling entry function" in line and name in line)
+        if found and "spill stores" in line:
+            spill = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+        elif found and spill and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            return regs, spill[1], spill[2]
+    raise SmokeFailure(f"no ptxas report for {name}")
+
+
 def traj_agreement(kern: torch.Tensor, plain: torch.Tensor):
     """(share of trajectories within 1e-4 of the plain version, the largest
     deviation over those, the largest over all, the largest column-sum error
@@ -431,6 +462,13 @@ def main() -> int:
     for line in kernels.build_log().splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")):
             print(f"  ptxas: {line.strip()}")
+    warp_regs = {name: kernel_ptxas(kernels.build_log(), name)
+                 for name in ("apg_fused_1q_kernel", "cp_project_kernel")}
+    print("ptxas " + "; ".join(
+        f"{name}: {r} registers, {st}/{ld} B spill stores/loads"
+        for name, (r, st, ld) in warp_regs.items())
+        + f" ({PROBLEMS_PER_BLOCK_1Q} problems a block, one a half-warp; "
+        f"{CP_PER_BLOCK} matrices a block, one a warp)")
 
     a_np = process_tomo_A_matrix(2)
     in32 = inputs_from_numpy(a_np, np.zeros((1, a_np.shape[0])), device=dev)
@@ -811,6 +849,28 @@ def main() -> int:
     print("plain32 on the host CPU against plain32 on the card: q50/q90/q99/"
           "max " + "/".join(f"{x:.3e}" for x in (
               *torch.quantile(spread, q).tolist(), spread.max().item())))
+    # a batch that leaves the last block part empty and its last warp with
+    # one live half, on a generator of its own (the later phases draw from
+    # `gen` what they drew before); the first problems solved alone give
+    # bitwise the same estimates
+    n1_tail, _ = synth_process_datasets(
+        torch.Generator(device=dev).manual_seed(SEED + 6), a1, 2,
+        TAIL_BATCH_1Q, SHOTS)
+    start = lanes_apg.linear_inversion_start(inp.a_pinv, n1_tail, 2)
+
+    def solve_1q(k):
+        return torch.complex(*lanes_apg.apg_fused_kernel(
+            inp.ar, inp.ai, n1_tail[:k].contiguous(),
+            *(x[:k].contiguous() for x in start), dim=2))
+
+    kern = solve_1q(TAIL_BATCH_1Q)
+    against_plain_1q(kern, plain_1q(lanes_apg, in_1q, n1_tail, torch.float32),
+                     plain_1q(lanes_apg, in_1q, n1_tail, torch.float64))
+    alone = [torch.equal(solve_1q(k), kern[:k]) for k in (5, 17)]
+    print(f"check apg_fused_1q: B={TAIL_BATCH_1Q}, the first 5 and 17 "
+          f"problems solved alone bitwise equal: {alone}")
+    check(all(alone), "apg_fused_1q: a problem depends on its warp- or "
+          "block-mates")
 
     # 10. the one-qubit main path at full size, then its timing
     n1, chois1 = synth_process_datasets(gen, a1, 2, BATCH, SHOTS)
@@ -941,6 +1001,28 @@ def main() -> int:
     check(bool(torch.isfinite(pos).all()), "cp_project: non-finite output")
     check(err_cp < 1e-4, f"cp_project at B={BATCH}: {err_cp:.3e} from eigh")
     del exact
+    # a batch that leaves the last block part empty, on a generator of its
+    # own: against eigh, against the plain version after one sweep, and
+    # the first matrices projected alone
+    x = torch.randn((TAIL_BATCH_CP, 16, 16), device=dev, dtype=torch.complex64,
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 7))
+    h = (x + x.transpose(1, 2).conj()) / 2
+    kern = pallas_eigh.cp_project_pallas(h, sweeps=CP_SWEEPS)
+    exact = project_superoperators.proj_choi_to_completely_positive(
+        h.to(torch.complex128))
+    err = (kern.to(exact.dtype) - exact).abs().max().item()
+    err1 = (pallas_eigh.cp_project_pallas(h, sweeps=1)
+            - pallas_eigh.cp_project_reference(h, 1)).abs().max().item()
+    alone = [torch.equal(pallas_eigh.cp_project_pallas(
+        h[:k].contiguous(), sweeps=CP_SWEEPS), kern[:k]) for k in (3, 9)]
+    print(f"check cp_project: Gaussian B={TAIL_BATCH_CP} "
+          f"max|kernel-eigh f64|={err:.3e}; 1 sweep max|kernel-plain32|="
+          f"{err1:.3e}; the first 3 and 9 projected alone bitwise equal: "
+          f"{alone}")
+    check(err < 1e-4 and err1 < 1e-4,
+          f"cp_project at B={TAIL_BATCH_CP}: {err:.3e} / {err1:.3e}")
+    check(all(alone), "cp_project: a matrix depends on its block-mates")
+    del exact, kern, h, x
 
     # 13. timing of the CP projection, and both new kernels' bounds
     ms_cp, _ = cuda_ms(lambda: pallas_eigh.cp_project_pallas(
@@ -983,10 +1065,15 @@ def main() -> int:
         dict(record("apg_fused_1q", apg_src,
                     "forest_benchmarking_tpu/ops/lanes_apg.py:674",
                     launches_1q, err_1q[0], ms_k1, ms_p1, bound_1q),
-             median_abs_err=err_1q[1], q99_abs_err=err_1q[2]),
-        record("cp_project", apg_src,
-               "forest_benchmarking_tpu/ops/pallas_eigh.py:68", launches_cp,
-               err_cp, ms_cp, ms_cpp, cp_bound, library_ms=ms_lib),
+             median_abs_err=err_1q[1], q99_abs_err=err_1q[2],
+             registers=warp_regs["apg_fused_1q_kernel"][0],
+             spill_bytes=warp_regs["apg_fused_1q_kernel"][1:]),
+        dict(record("cp_project", apg_src,
+                    "forest_benchmarking_tpu/ops/pallas_eigh.py:68",
+                    launches_cp, err_cp, ms_cp, ms_cpp, cp_bound,
+                    library_ms=ms_lib),
+             registers=warp_regs["cp_project_kernel"][0],
+             spill_bytes=warp_regs["cp_project_kernel"][1:]),
         dict(record("traj_probs", qv_src,
                     "forest_benchmarking_tpu/ops/pallas_traj.py:301",
                     qv_launches["traj_probs"], err_t, ms_t, ms_tp, traj_bound),

@@ -32,18 +32,16 @@
 // V, run cyclic-Jacobi sweeps, clip negative eigenvalues, reconstruct) and
 // the TP projection; V carries across Dykstra iterations and outer steps.
 //
-// Layout: a problem's Choi entries (i, j), n = D^2 of each, are held one per
-// thread, by a group of n^2 threads. At D = 4 a block is P groups of 256
-// threads (P = PROBLEMS_2Q = 4 problems); at D = 2 it is sixteen
-// groups of 16 threads (sixteen problems) in 256 threads. The schedule is
-// static, so every problem of a block runs the same steps and the
-// block-wide __syncthreads points serve every group. The elementwise
-// APG/Dykstra state (est, prev, the two Dykstra corrections, the Dykstra
-// iterate) lives in the thread's registers; the matrices that threads
-// exchange (operand, H, HV, M, V) and the counts and eta vectors live in
-// shared memory. The TPU kernel's pair-layout permutations, fences and vreg
-// tiling are not carried: a Jacobi round rotates the pairs (p, q) of
-// `_round_robin_pairs` in place.
+// Layout at D = 4: a problem's Choi entries (i, j), n = 16 of each, are
+// held one per thread by a group of 256 threads, P = PROBLEMS_2Q = 4 groups
+// a block. The schedule is static, so every problem of a block runs the same
+// steps; Dykstra's steps wait on the group's named barrier, the passes over
+// A on __syncthreads. The elementwise APG/Dykstra state (est, prev, the two
+// Dykstra corrections, the Dykstra iterate) lives in the thread's registers;
+// the matrices that threads exchange (operand, H, HV, M, V) and the counts
+// and eta vectors live in shared memory. The TPU kernel's pair-layout
+// permutations, fences and vreg tiling are not carried: a Jacobi round
+// rotates the pairs (p, q) of `_round_robin_pairs` in place.
 //
 // What bounds it on an H100:
 // - D = 4: L2 bytes of A. Both A contractions are computed here, by hand,
@@ -59,21 +57,23 @@
 //   A^T eta pass (grad_2q) reads A[r, j] coalesced over the columns j and
 //   the P values eta_g[r] as one broadcast load. Neither order of summation
 //   depends on which problems share the block, so a problem's estimate does
-//   not depend on its block-mates.
-// - D = 2: A is 36 x 16 (4.6 KB in two planes), so each block stages it in
-//   shared memory once (rows padded to 17 floats: the p pass, where thread l
-//   takes rows l, l + 16, ..., reads without bank conflicts) and no pass
-//   touches device memory. What is left is the serial Jacobi rounds and the
-//   barriers between the steps of every Dykstra iteration.
-// - Both: the serial Jacobi rounds, n - 1 per sweep, each three steps
-//   (coefficients, column rotations, row rotations) with a __syncthreads
-//   between them. Resident blocks and problems per SM hide that latency.
+//   not depend on its block-mates. Then the serial Jacobi rounds, n - 1 per
+//   sweep, each three steps (coefficients, column rotations, row rotations)
+//   with a barrier between them.
+// - D = 2 (apg_fused_1q_kernel): one problem per half-warp, its state in
+//   registers, entries exchanged by shuffles; A is 36 x 16 (4.6 KB in two
+//   planes), staged in shared memory once per block of PROBLEMS_1Q = 16
+//   problems (rows padded to 17 floats: lane l takes rows l, l + 16, ...
+//   without bank conflicts), so no pass touches device memory. The one
+//   __syncthreads is the staging's. What is left is instruction issue: the
+//   shuffles and the rotation coefficients of the serial Jacobi rounds.
 //
-// cp_project: one block of 256 threads per 16x16 matrix, thread t owning
-// entry (t / 16, t % 16); H is read as given (complex64, interleaved), V = I,
-// `sweeps` Jacobi sweeps, then V diag(max(m_kk, 0)) V^dag is written.
-// Bound: the 90 serial rounds of 6 sweeps, as above; its bytes (8 KB per
-// matrix) take a tenth of its operations' time at the card's peaks.
+// cp_project (cp_project_kernel): one warp per 16x16 matrix, CP_PER_BLOCK =
+// 8 a block, M and V in the warp's slice of shared memory, __syncwarp
+// between the steps of a round; H is read as given (complex64, interleaved),
+// V = I, `sweeps` Jacobi sweeps, then V diag(max(m_kk, 0)) V^dag is written.
+// Bound: the 90 serial rounds of 6 sweeps; its bytes (4 KB per matrix) take
+// a tenth of its operations' time at the card's peaks.
 
 #include <cuda_runtime.h>
 
@@ -107,7 +107,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr float EPS_ROT = 1e-18f;  // f32 rotation threshold of _rotation_coeffs
 constexpr float EPS_P = 1e-6f;     // probability clamp
-constexpr int PAD_1Q = 17;         // row stride of A in shared memory at D = 2
+constexpr int PAD_1Q = 20;         // row stride of A in shared memory at D = 2
 constexpr int PROBLEMS_2Q = 4;     // problems per block at D = 4
 
 // Shapes of the problem at Hilbert-space dimension D.
@@ -118,7 +118,6 @@ struct Dims {
   static constexpr int NPAIRS = N / 2;
   static constexpr int NROUNDS = N - 1;
   static constexpr int HALF = NN / 2;       // (row, pair) tasks of a rotation
-  static constexpr int P = THREADS / NN;    // problems per 256 threads
 };
 
 // _round_robin_pairs(16): 15 rounds of 8 disjoint pairs (p < q).
@@ -651,41 +650,272 @@ __global__ void __launch_bounds__(THREADS * P, 1)
     out_i[b * NN + l] = est_i;
   }
 }
-
 // ---------------------------------------------------------------------------
-// D = 2: sixteen problems per block, A staged in shared memory.
+// D = 2: one problem per half-warp, its state in registers.
+//
+// Lane l of a half-warp holds Choi entry (i, j) = (l / 4, l % 4) of its
+// problem: est, prev, the Dykstra iterate and both corrections, and its
+// entries of M = V^dag H V and of the carried eigenbasis V. Entries move
+// between lanes by __shfl_sync within the half-warp (width 16), so no step
+// after the staging of A and the counts waits on a barrier. The schedule is
+// static and the problems past the batch run on zero counts and a zero
+// start, so every shuffle runs with the whole warp converged.
 // ---------------------------------------------------------------------------
 
-// The pass over A for the problem of this thread's group, x in s.sr/s.si
-// (written and synced by the caller): thread l takes rows l, l + 16, ...
-// of A (shared, row stride PAD_1Q). With `cost` false it stores the group's
-// eta_r = n_r / max(Re(A x)_r, EPS_P); with `cost` true it returns the
-// group's -sum_r n_r log p_r in each of its threads. Ends with a
-// __syncthreads.
-__device__ float a_pass_1q(const Mats<2>& s, const float* sar, const float* sai,
-                           const float* sn, float* seta, int rows, int l,
-                           bool cost) {
+constexpr int PROBLEMS_1Q = 16;  // problems per block at D = 2
+static_assert(PROBLEMS_1Q * 16 == THREADS, "a problem is a half-warp");
+constexpr int SLOTS_1Q = 3;    // rows a lane takes in each chunk of A's rows
+constexpr int CHUNK_1Q = SLOTS_1Q * 16;   // rows of a chunk
+
+// Rows of A and of the counts as the D = 2 kernel stages them: padded with
+// zero rows to whole chunks.
+__host__ __device__ constexpr int padded_rows_1q(int rows) {
+  return (rows + CHUNK_1Q - 1) / CHUNK_1Q * CHUNK_1Q;
+}
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// x in lane `src` of this thread's half-warp.
+__device__ __forceinline__ float hw(float x, int src) {
+  return __shfl_sync(FULL_MASK, x, src, 16);
+}
+
+// This lane's entry x of a pair (p, q) of columns (ROW false) or rows (ROW
+// true) of a 4 x 4 matrix after a Jacobi rotation, the partner entry y in
+// lane `partner`: columns p <- c p - s conj(e) q, q <- s e p + c q; rows
+// p <- c p - s e q, q <- s conj(e) p + c q, as jacobi_sweeps. Written as
+// x <- c x -+ s g y, with the phase g and the sign picked by selects, so
+// that the lanes of p and of q run one instruction stream.
+template <bool ROW>
+__device__ __forceinline__ void rotate_1q(float& xr, float& xi, int partner,
+                                          bool is_p, float c, float sn,
+                                          float er, float ei) {
+  const float yr = hw(xr, partner), yi = hw(xi, partner);
+  const float gi = is_p != ROW ? -ei : ei;
+  const float ss = is_p ? -sn : sn;
+  const float tr = er * yr - gi * yi, ti = er * yi + gi * yr;
+  xr = c * xr + ss * tr;
+  xi = c * xi + ss * ti;
+}
+
+// `sweeps` cyclic-Jacobi sweeps of M and V (this lane's entries (i, j) in
+// mr/mi and vr/vi), rotation by rotation as jacobi_sweeps<2>: round r pairs
+// index x with x ^ (3 - r), which is c_pairs4[r]. The lanes of column j
+// compute the coefficients of the pair of j from M as the round starts; the
+// row rotation takes those of the pair of i from lane (i, i).
+__device__ void jacobi_1q(float& mr, float& mi, float& vr, float& vi,
+                          int sweeps, int l) {
+  const int i = l >> 2, j = l & 3;
+  for (int sw = 0; sw < sweeps; ++sw) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const int m = 3 - r;
+      const int p = min(j, j ^ m), q = max(j, j ^ m);
+      const float apq_r = hw(mr, p * 4 + q), apq_i = hw(mi, p * 4 + q);
+      const float app = hw(mr, p * 5), aqq = hw(mr, q * 5);
+      float c, sn, er, ei;
+      rotation_coeffs(apq_r, apq_i, app, aqq, c, sn, er, ei);
+      const float rc = hw(c, i * 5), rs = hw(sn, i * 5);
+      const float rer = hw(er, i * 5), rei = hw(ei, i * 5);
+      rotate_1q<false>(mr, mi, l ^ m, j == p, c, sn, er, ei);
+      rotate_1q<false>(vr, vi, l ^ m, j == p, c, sn, er, ei);
+      rotate_1q<true>(mr, mi, l ^ (m << 2), i < (i ^ m), rc, rs, rer, rei);
+    }
+  }
+}
+
+// CP projection, as warm_cp<2>, of the matrix whose entry l is (sr, si) in
+// the carried eigenbasis (vr/vi, rotated in place): hermitianize, T = H V,
+// M = V^dag T, the sweeps, then this lane's entry of
+// V diag(max(m_kk, 0)) V^dag. Every sum over k runs in order.
+__device__ void warm_cp_1q(float sr, float si, float& vr, float& vi,
+                           int sweeps, int l, float& pos_r, float& pos_i) {
+  const int i = l >> 2, j = l & 3;
+  const float hr = (sr + hw(sr, j * 4 + i)) / 2.f;
+  const float hi = (si - hw(si, j * 4 + i)) / 2.f;
+  float ar = hw(hr, i * 4), ai = hw(hi, i * 4);
+  float br = hw(vr, j), bi = hw(vi, j);
+  float tr = ar * br - ai * bi, ti = ar * bi + ai * br;
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    ar = hw(hr, i * 4 + k);
+    ai = hw(hi, i * 4 + k);
+    br = hw(vr, k * 4 + j);
+    bi = hw(vi, k * 4 + j);
+    tr = tr + ar * br - ai * bi;
+    ti = ti + ar * bi + ai * br;
+  }
+  ar = hw(vr, i);
+  ai = hw(vi, i);
+  br = hw(tr, j);
+  bi = hw(ti, j);
+  float mr = ar * br + ai * bi, mi = ar * bi - ai * br;
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    ar = hw(vr, k * 4 + i);
+    ai = hw(vi, k * 4 + i);
+    br = hw(tr, k * 4 + j);
+    bi = hw(ti, k * 4 + j);
+    mr = mr + ar * br + ai * bi;
+    mi = mi + ar * bi - ai * br;
+  }
+  jacobi_1q(mr, mi, vr, vi, sweeps, l);
+  // this lane's entry of V diag(max(m_kk, 0))
+  const float w = fmaxf(hw(mr, j * 5), 0.f);
+  const float vwr = vr * w, vwi = vi * w;
+  pos_r = 0.f;
+  pos_i = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float xr = hw(vwr, i * 4 + k), xi = hw(vwi, i * 4 + k);
+    const float yr = hw(vr, j * 4 + k), yi = -hw(vi, j * 4 + k);
+    pos_r = pos_r + xr * yr - xi * yi;
+    pos_i = pos_i + xr * yi + xi * yr;
+  }
+}
+
+// TP projection X - kron(Tr_out(X) - I, I) / 2 of the matrix whose entry l
+// is (xr, xi), as proj_tp<2>: Tr_out(X)[a, c] = X[2a, 2c] + X[2a+1, 2c+1].
+__device__ void proj_tp_1q(float xr, float xi, int l, float& out_r,
+                           float& out_i) {
+  const int i = l >> 2, j = l & 3;
+  const int a = i >> 1, b = i & 1, c = j >> 1, d = j & 1;
+  const int src = 8 * a + 2 * c;
+  const float ptr = hw(xr, src) + hw(xr, src + 5);
+  const float pti = hw(xi, src) + hw(xi, src + 5);
+  out_r = xr;
+  out_i = xi;
+  if (b == d) {
+    out_r = xr - (ptr - (a == c ? 1.f : 0.f)) / 2.f;
+    out_i = xi - pti / 2.f;
+  }
+}
+
+// `iters` Dykstra iterations (CP then TP), as dykstra<2, SPLIT>, on the
+// matrix whose entry l is (zr, zi), which the result replaces.
+template <bool SPLIT>
+__device__ void dykstra_1q(int l, int iters, int sweeps, int sweeps_rest,
+                           float& vr, float& vi, float& zr, float& zi) {
+  float cp_r = 0.f, cp_i = 0.f, tp_r = 0.f, tp_i = 0.f;
+  float st_r = zr, st_i = zi;
+  for (int it = 0; it < iters; ++it) {
+    const float pre_r = st_r - cp_r, pre_i = st_i - cp_i;
+    float pos_r, pos_i;
+    warm_cp_1q(pre_r, pre_i, vr, vi, SPLIT && it > 0 ? sweeps_rest : sweeps,
+               l, pos_r, pos_i);
+    cp_r = pos_r - pre_r;
+    cp_i = pos_i - pre_i;
+    const float pre2_r = pos_r - tp_r, pre2_i = pos_i - tp_i;
+    proj_tp_1q(pre2_r, pre2_i, l, st_r, st_i);
+    tp_r = st_r - pre2_r;
+    tp_i = st_i - pre2_i;
+  }
+  zr = st_r;
+  zi = st_i;
+}
+
+// The shared memory of a D = 2 block, in floats from the start of the
+// dynamic allocation, for A padded to `rp` rows (a whole number of chunks).
+// Each array starts on 16 bytes, so that float4 loads reach it.
+struct Smem1q {
+  int ar, ai;    // A, two planes, rp x PAD_1Q
+  int atr, ati;  // A^T, two planes, 16 x (rp + 4)
+  int n;         // the counts of the block's problems, P x rp
+  int eta;       // eta of each problem, P x rp
+  int x;         // the operand of each problem, P x 32 (real, then imaginary)
+  int total;
+  __host__ __device__ explicit Smem1q(int rp) {
+    ar = 0;
+    ai = ar + rp * PAD_1Q;
+    atr = ai + rp * PAD_1Q;
+    ati = atr + 16 * (rp + 4);
+    n = ati + 16 * (rp + 4);
+    eta = n + PROBLEMS_1Q * rp;
+    x = eta + PROBLEMS_1Q * rp;
+    total = x + PROBLEMS_1Q * 32;
+  }
+};
+
+// A pass of this half-warp's problem g at the operand x (entry l in
+// xr/xi): p_r = max(Re(A x)_r, EPS_P), in chunks of CHUNK_1Q rows, lane l
+// taking rows l, l + 16, ... of a chunk. x goes through the problem's
+// slice of shared memory and is read back as float4 broadcasts; rows of A
+// are read as float4 (row stride PAD_1Q = 20 floats: a quarter-warp's eight
+// rows fall in distinct banks). Each p_r sums its k in order, A_r x_r then
+// -A_i x_i for each k. `rp` rows are a whole number of chunks: the kernel
+// pads A and the counts with zero rows, which add exactly nothing
+// (eta = 0, n log p = -0). With GRAD it sets the gradient entry l,
+// g_r = -sum_r A_r[r, l] eta_r and g_i = sum_r A_i[r, l] eta_r, r in
+// order, eta through shared memory and rows of A^T as float4 (row stride
+// rp + 4, 4 mod 8: the eight rows of a quarter-warp fall in distinct
+// banks), and returns 0; without, it returns -sum_r n_r log p_r, the same
+// in all 16 lanes (per-lane sums over its rows, then an xor tree).
+template <bool GRAD>
+__device__ float a_pass_1q(float* sm, const Smem1q& lay, int rp, int g, int l,
+                           float xr, float xi, float& g_r, float& g_i) {
   constexpr int NN = Dims<2>::NN;
-  float part = 0.f;
-  for (int r = l; r < rows; r += NN) {
-    const float* rr = sar + r * PAD_1Q;
-    const float* ri = sai + r * PAD_1Q;
-    float acc = 0.f;
+  const float* sn = sm + lay.n + g * rp;
+  float* seta = sm + lay.eta + g * rp;
+  float* sx = sm + lay.x + g * 32;
+  __syncwarp();  // the last pass's reads of x and eta are done
+  sx[l] = xr;
+  sx[NN + l] = xi;
+  __syncwarp();
+  float part = 0.f, sum_r = 0.f, sum_i = 0.f;
+  for (int base = 0; base < rp; base += CHUNK_1Q) {
+    float acc[SLOTS_1Q];
 #pragma unroll
-    for (int k = 0; k < NN; ++k) acc += rr[k] * s.sr[k] - ri[k] * s.si[k];
-    const float p = fmaxf(acc, EPS_P);
-    if (cost)
-      part += sn[r] * logf(p);
-    else
-      seta[r] = sn[r] / p;
-  }
-  if (cost) {
-    // the group's 16 lanes are one half of a warp
+    for (int s = 0; s < SLOTS_1Q; ++s) acc[s] = 0.f;
+    // rolled: unrolled, the loads of A hoisted ahead took 114 registers
+#pragma unroll 1
+    for (int k = 0; k < NN; k += 4) {
+      const float4 x_r = *reinterpret_cast<const float4*>(sx + k);
+      const float4 x_i = *reinterpret_cast<const float4*>(sx + NN + k);
 #pragma unroll
-    for (int off = NN / 2; off > 0; off >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, off);
+      for (int s = 0; s < SLOTS_1Q; ++s) {
+        const int at = (base + s * NN + l) * PAD_1Q + k;
+        const float4 a_r = *reinterpret_cast<const float4*>(sm + lay.ar + at);
+        const float4 a_i = *reinterpret_cast<const float4*>(sm + lay.ai + at);
+        float v = acc[s];
+        v = fmaf(-a_i.x, x_i.x, fmaf(a_r.x, x_r.x, v));
+        v = fmaf(-a_i.y, x_i.y, fmaf(a_r.y, x_r.y, v));
+        v = fmaf(-a_i.z, x_i.z, fmaf(a_r.z, x_r.z, v));
+        v = fmaf(-a_i.w, x_i.w, fmaf(a_r.w, x_r.w, v));
+        acc[s] = v;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < SLOTS_1Q; ++s) {
+      const float p = fmaxf(acc[s], EPS_P);
+      const float nv = sn[base + s * NN + l];
+      if (GRAD)
+        seta[base + s * NN + l] = nv / p;
+      else
+        part += nv * logf(p);
+    }
+    if (GRAD) {
+      __syncwarp();
+      const float* atr = sm + lay.atr + l * (rp + 4) + base;
+      const float* ati = sm + lay.ati + l * (rp + 4) + base;
+#pragma unroll
+      for (int r = 0; r < CHUNK_1Q; r += 4) {
+        const float4 e = *reinterpret_cast<const float4*>(seta + base + r);
+        const float4 ar = *reinterpret_cast<const float4*>(atr + r);
+        const float4 ai = *reinterpret_cast<const float4*>(ati + r);
+        sum_r = fmaf(ar.w, e.w, fmaf(ar.z, e.z, fmaf(ar.y, e.y,
+                     fmaf(ar.x, e.x, sum_r))));
+        sum_i = fmaf(ai.w, e.w, fmaf(ai.z, e.z, fmaf(ai.y, e.y,
+                     fmaf(ai.x, e.x, sum_i))));
+      }
+    }
   }
-  __syncthreads();
+  if (GRAD) {
+    g_r = -sum_r;
+    g_i = sum_i;
+    return 0.f;
+  }
+#pragma unroll
+  for (int off = NN / 2; off > 0; off >>= 1)
+    part += __shfl_xor_sync(FULL_MASK, part, off);
   return -part;
 }
 
@@ -699,75 +929,58 @@ __global__ void __launch_bounds__(THREADS)
                         float* __restrict__ out_r, float* __restrict__ out_i,
                         int batch, int rows, const ApgPhases sch,
                         const ApgSweepsRest rest) {
-  using C = Dims<2>;
-  constexpr int NN = C::NN, P = C::P;
-  __shared__ Mats<2> mats[P];
-  __shared__ Pairs<2> pairs;
-  extern __shared__ float dyn[];
-  float* sar = dyn;                       // A, real plane, rows x PAD_1Q
-  float* sai = sar + rows * PAD_1Q;       // A, imaginary plane
-  float* sn_all = sai + rows * PAD_1Q;    // counts of the block, P x rows
-  float* seta_all = sn_all + P * rows;    // n / p, P x rows
+  constexpr int NN = Dims<2>::NN, P = PROBLEMS_1Q;
+  extern __shared__ __align__(16) float dyn[];
+  const int rp = padded_rows_1q(rows);
+  const Smem1q lay(rp);
   const int t = threadIdx.x, g = t / NN, l = t % NN;
   const size_t first = static_cast<size_t>(blockIdx.x) * P;
   const size_t b = first + g;
   const bool live = b < static_cast<size_t>(batch);
-  Mats<2>& s = mats[g];
-  const float* sn = sn_all + g * rows;
-  float* seta = seta_all + g * rows;
 
-  load_pairs<2>(pairs, t);
-  for (int k = t; k < rows * NN; k += THREADS) {
-    sar[(k / NN) * PAD_1Q + k % NN] = a_r[k];
-    sai[(k / NN) * PAD_1Q + k % NN] = a_i[k];
+  // A, A^T and the counts, padded with zero rows
+  for (int k = t; k < rp * NN; k += THREADS) {
+    const int r = k / NN, c = k % NN;
+    const float vr = r < rows ? a_r[k] : 0.f, vi = r < rows ? a_i[k] : 0.f;
+    dyn[lay.ar + r * PAD_1Q + c] = vr;
+    dyn[lay.ai + r * PAD_1Q + c] = vi;
+    dyn[lay.atr + c * (rp + 4) + r] = vr;
+    dyn[lay.ati + c * (rp + 4) + r] = vi;
   }
   // problems past the batch run on zero counts and a zero start, and are
   // not written back
-  const size_t n_end = static_cast<size_t>(batch) * rows;
-  for (int k = t; k < P * rows; k += THREADS) {
-    const size_t idx = first * rows + k;
-    sn_all[k] = idx < n_end ? n[idx] : 0.f;
+  for (int k = t; k < P * rp; k += THREADS) {
+    const int q = k / rp, r = k - q * rp;
+    const size_t prob = first + q;
+    dyn[lay.n + k] = prob < static_cast<size_t>(batch) && r < rows
+                         ? n[prob * rows + r] : 0.f;
   }
-  s.e.vr[l] = (l >> 2) == (l & 3) ? 1.f : 0.f;
-  s.e.vi[l] = 0.f;
+  float vr = (l >> 2) == (l & 3) ? 1.f : 0.f, vi = 0.f;
   float est_r = live ? rho0_r[b * NN + l] : 0.f;
   float est_i = live ? rho0_i[b * NN + l] : 0.f;
-  // every shared buffer above is read only after the first __syncthreads
-  dykstra<2>(s, pairs, l, sch.init_iters, sch.init_sweeps, sch.init_sweeps,
-             est_r, est_i);
+  // A and the counts are staged by the whole block: the kernel's one barrier
+  __syncthreads();
+  float g_r, g_i;
+  dykstra_1q<false>(l, sch.init_iters, sch.init_sweeps, sch.init_sweeps, vr,
+                    vi, est_r, est_i);
 
   float prev_r = est_r, prev_i = est_i;
   float tk = 1.f;
-  s.sr[l] = est_r;
-  s.si[l] = est_i;
-  __syncthreads();
-  float old_cost = a_pass_1q(s, sar, sai, sn, nullptr, rows, l, true);
+  float old_cost = a_pass_1q<false>(dyn, lay, rp, g, l, est_r, est_i, g_r,
+                                    g_i);
   for (int ph = 0; ph < sch.n_phases; ++ph) {
     for (int it = 0; it < sch.outer[ph]; ++it) {
       const float t_next = (1.f + sqrtf(1.f + 4.f * tk * tk)) / 2.f;
       const float beta = (tk - 1.f) / t_next;
       const float y_r = est_r + beta * (est_r - prev_r);
       const float y_i = est_i + beta * (est_i - prev_i);
-      s.sr[l] = y_r;
-      s.si[l] = y_i;
-      __syncthreads();
-      a_pass_1q(s, sar, sai, sn, seta, rows, l, false);
-      // gradient entry l: -sum_r A_r[r, l] eta_r + i sum_r A_i[r, l] eta_r
-      float sum_r = 0.f, g_i = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        const float e = seta[r];
-        sum_r += sar[r * PAD_1Q + l] * e;
-        g_i += sai[r * PAD_1Q + l] * e;
-      }
-      const float g_r = -sum_r;
+      a_pass_1q<true>(dyn, lay, rp, g, l, y_r, y_i, g_r, g_i);
       float z_r = y_r - sch.inv_mu * g_r;
       float z_i = y_i - sch.inv_mu * g_i;
-      dykstra<2, SPLIT>(s, pairs, l, sch.dykstra[ph], sch.sweeps[ph],
-                        rest.sweeps_rest[ph], z_r, z_i);
-      s.sr[l] = z_r;
-      s.si[l] = z_i;
-      __syncthreads();
-      const float new_cost = a_pass_1q(s, sar, sai, sn, nullptr, rows, l, true);
+      dykstra_1q<SPLIT>(l, sch.dykstra[ph], sch.sweeps[ph],
+                        rest.sweeps_rest[ph], vr, vi, z_r, z_i);
+      const float new_cost = a_pass_1q<false>(dyn, lay, rp, g, l, z_r, z_i,
+                                              g_r, g_i);
       // O'Donoghue-Candes function restart
       tk = new_cost > old_cost ? 1.f : t_next;
       prev_r = est_r;
@@ -777,8 +990,8 @@ __global__ void __launch_bounds__(THREADS)
       old_cost = new_cost;
     }
   }
-  dykstra<2, SPLIT>(s, pairs, l, sch.final_iters, sch.final_sweeps,
-                    rest.final_sweeps_rest, est_r, est_i);
+  dykstra_1q<SPLIT>(l, sch.final_iters, sch.final_sweeps,
+                    rest.final_sweeps_rest, vr, vi, est_r, est_i);
   if (live) {
     out_r[b * NN + l] = est_r;
     out_i[b * NN + l] = est_i;
@@ -786,28 +999,124 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// The standalone CP projection (cold start, V = I).
+// The standalone CP projection (cold start, V = I): one warp a matrix.
+//
+// A warp keeps its matrix's M and V in a slice of shared memory, complex
+// entries as float2 with row stride CP_STRIDE, and its lanes wait only on
+// __syncwarp. Lane l works on pair k = l % 8 of every round: it computes
+// that pair's coefficients itself (the four lanes of a pair compute the
+// same bits), rotates columns p_k, q_k of M and of V in four rows and rows
+// p_k, q_k of M in four columns: rows (columns) 8 u + 4 h + t, t = 0..3,
+// u = (l / 8) % 2, h = l / 16. A half-warp's sixteen 8-byte accesses then
+// touch rows (columns) t and 8 + t, in distinct banks unless the round
+// pairs some p with p + 8.
 // ---------------------------------------------------------------------------
+
+constexpr int CP_PER_BLOCK = 8;  // matrices per block
+static_assert(CP_PER_BLOCK * 32 == THREADS, "a matrix is a warp");
+constexpr int CP_STRIDE = 17;  // row stride of M and V, in complex entries
+
+struct CpWarp {
+  float2 m[16 * CP_STRIDE];  // M, rotated in place by the sweeps
+  float2 v[16 * CP_STRIDE];  // eigenbasis
+};
+
+// The seat of a player of _round_robin_pairs(16) one round later: seat 0
+// stays, the others move down by one, 1 wrapping to 15. Pair k of round r
+// (c_pairs16[r][k]) is the players at seats k and 15 - k of round 0, moved
+// r times, sorted.
+__device__ __forceinline__ int next_seat(int x) {
+  return x == 0 ? 0 : (x == 1 ? 15 : x - 1);
+}
+
+// Entries p and q of a row of M or V: p <- c p - s conj(e) q,
+// q <- s e p + c q (columns p, q rotated), as jacobi_sweeps.
+__device__ __forceinline__ void rotate_cols_cp(float2* row, int p, int q,
+                                               float c, float sn, float er,
+                                               float ei) {
+  const float2 x = row[p], y = row[q];
+  const float tqr = er * y.x + ei * y.y, tqi = er * y.y - ei * y.x;
+  const float tpr = er * x.x - ei * x.y, tpi = er * x.y + ei * x.x;
+  row[p] = make_float2(c * x.x - sn * tqr, c * x.y - sn * tqi);
+  row[q] = make_float2(sn * tpr + c * y.x, sn * tpi + c * y.y);
+}
+
+// Entries (p, col) and (q, col) of M: p <- c p - s e q,
+// q <- s conj(e) p + c q (rows p, q rotated), as jacobi_sweeps.
+__device__ __forceinline__ void rotate_rows_cp(float2* m, int col, int p,
+                                               int q, float c, float sn,
+                                               float er, float ei) {
+  const float2 x = m[p * CP_STRIDE + col], y = m[q * CP_STRIDE + col];
+  const float tqr = er * y.x - ei * y.y, tqi = er * y.y + ei * y.x;
+  const float tpr = er * x.x + ei * x.y, tpi = er * x.y - ei * x.x;
+  m[p * CP_STRIDE + col] = make_float2(c * x.x - sn * tqr, c * x.y - sn * tqi);
+  m[q * CP_STRIDE + col] = make_float2(sn * tpr + c * y.x, sn * tpi + c * y.y);
+}
 
 __global__ void __launch_bounds__(THREADS)
     cp_project_kernel(const float2* __restrict__ h, float2* __restrict__ out,
-                      int sweeps) {
+                      int batch, int sweeps) {
   constexpr int NN = Dims<4>::NN;
-  __shared__ Eig<4> s;
-  __shared__ Pairs<4> pairs;
-  const int t = threadIdx.x;
-  const size_t b = blockIdx.x;
-  load_pairs<4>(pairs, t);
-  const float2 x = h[b * NN + t];
-  s.mr[t] = x.x;
-  s.mi[t] = x.y;
-  s.vr[t] = (t >> 4) == (t & 15) ? 1.f : 0.f;
-  s.vi[t] = 0.f;
-  __syncthreads();
-  jacobi_sweeps<4>(s, pairs, sweeps, t);
-  float pos_r, pos_i;
-  pos_part_entry<4>(s, t, pos_r, pos_i);
-  out[b * NN + t] = make_float2(pos_r, pos_i);
+  __shared__ CpWarp warps[CP_PER_BLOCK];
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const size_t b = static_cast<size_t>(blockIdx.x) * CP_PER_BLOCK + w;
+  // a warp past the batch leaves at once: no barrier spans two warps
+  if (b >= static_cast<size_t>(batch)) return;
+  CpWarp& s = warps[w];
+#pragma unroll
+  for (int t = 0; t < NN / 32; ++t) {
+    const int e = l + 32 * t, r = e >> 4, c = e & 15;
+    s.m[r * CP_STRIDE + c] = h[b * NN + e];
+    s.v[r * CP_STRIDE + c] = make_float2(r == c ? 1.f : 0.f, 0.f);
+  }
+  __syncwarp();
+  const int k = l & 7;
+  const int base = 8 * ((l >> 3) & 1) + 4 * (l >> 4);
+  for (int sw = 0; sw < sweeps; ++sw) {
+    int x = k, y = 15 - k;  // the seats of pair k in round 0
+    for (int r = 0; r < Dims<4>::NROUNDS; ++r) {
+      const int p = min(x, y), q = max(x, y);
+      const float2 apq = s.m[p * CP_STRIDE + q];
+      float c, sn, er, ei;
+      rotation_coeffs(apq.x, apq.y, s.m[p * CP_STRIDE + p].x,
+                      s.m[q * CP_STRIDE + q].x, c, sn, er, ei);
+      __syncwarp();
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        rotate_cols_cp(s.m + (base + t) * CP_STRIDE, p, q, c, sn, er, ei);
+        rotate_cols_cp(s.v + (base + t) * CP_STRIDE, p, q, c, sn, er, ei);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        rotate_rows_cp(s.m, base + t, p, q, c, sn, er, ei);
+      __syncwarp();
+      x = next_seat(x);
+      y = next_seat(y);
+    }
+  }
+  // entries (i, j) = (l / 16 + 2 t, l % 16), t = 0..7, of
+  // V diag(max(m_kk, 0)) V^dag, k in order
+  const int j = l & 15, i0 = l >> 4;
+  float pos_r[8], pos_i[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) pos_r[t] = pos_i[t] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < 16; ++kk) {
+    const float wk = fmaxf(s.m[kk * CP_STRIDE + kk].x, 0.f);
+    const float2 vj = s.v[j * CP_STRIDE + kk];
+    const float yr = vj.x, yi = -vj.y;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const float2 vi = s.v[(i0 + 2 * t) * CP_STRIDE + kk];
+      const float xr = vi.x * wk, xi = vi.y * wk;
+      pos_r[t] = pos_r[t] + xr * yr - xi * yi;
+      pos_i[t] = pos_i[t] + xr * yi + xi * yr;
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+    out[b * NN + (i0 + 2 * t) * 16 + j] = make_float2(pos_r[t], pos_i[t]);
 }
 
 // Whether a projection of the schedule runs another sweep count after its
@@ -843,9 +1152,8 @@ cudaError_t launch_apg(const float* a_r, const float* a_i, const float* at_r,
         a_r, a_i, at_r, at_i, n, rho0_r, rho0_i, out_r, out_i, batch, rows,
         sch.phases, sch.rest);
   } else if (dim == 2) {
-    constexpr int P = Dims<2>::P;
-    const size_t dyn = (2 * PAD_1Q + 2 * P) * static_cast<size_t>(rows) *
-                       sizeof(float);
+    constexpr int P = PROBLEMS_1Q;
+    const size_t dyn = Smem1q(padded_rows_1q(rows)).total * sizeof(float);
     err = cudaFuncSetAttribute(apg_fused_1q_kernel<SPLIT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(dyn));
@@ -884,8 +1192,9 @@ extern "C" int apg_fused_launch(const float* a_r, const float* a_i,
 extern "C" int cp_project_launch(const void* h, void* out, int batch,
                                  int sweeps, void* stream) {
   if (batch <= 0) return static_cast<int>(cudaSuccess);
-  cp_project_kernel<<<batch, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(h), static_cast<float2*>(out), sweeps);
+  cp_project_kernel<<<(batch + CP_PER_BLOCK - 1) / CP_PER_BLOCK, THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(h), static_cast<float2*>(out), batch, sweeps);
   return static_cast<int>(cudaGetLastError());
 }
 

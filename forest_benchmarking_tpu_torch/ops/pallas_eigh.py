@@ -79,7 +79,7 @@ def cp_project_pallas(h: torch.Tensor, sweeps: int = 6,
     :return: (B, 16, 16) positive parts, same dtype and device.
 
     On the card (complex64 only) this launches ``csrc/apg_fused.cu``'s
-    ``cp_project_kernel``, one thread block per matrix, and adds one to
+    ``cp_project_kernel``, one warp per matrix, and adds one to
     ``cp_project_pallas.launches``; on a CPU tensor it runs
     :func:`cp_project_reference`.
     """

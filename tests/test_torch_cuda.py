@@ -6,11 +6,13 @@ suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
+import re
+
 import numpy as np
 import pytest
 import torch
 
-from forest_benchmarking_tpu_torch import quantum_volume
+from forest_benchmarking_tpu_torch import kernels, quantum_volume
 from forest_benchmarking_tpu_torch.benchmarks import (
     inputs_from_numpy, process_tomo_A_matrix, synth_process_datasets)
 from forest_benchmarking_tpu_torch.ops import (
@@ -25,6 +27,21 @@ pytestmark = pytest.mark.cuda
 
 SCHEDULES = {"headline": lanes_apg.HEADLINE_TUNED_2Q,
              "parity": lanes_apg.PARITY_TUNED_2Q}
+
+
+def source_constant(name: str) -> int:
+    """An integer constant of ``csrc/apg_fused.cu`` (the problems or
+    matrices a block of a kernel holds)."""
+    src = (kernels.CSRC / "apg_fused.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+# batches that leave the last block part empty and, at dim = 2, the last
+# warp half empty (a problem is a half-warp; a CP matrix is a warp)
+TAIL_1Q = [source_constant("PROBLEMS_1Q") + 1,
+           3 * source_constant("PROBLEMS_1Q") + 5]
+TAIL_CP = [source_constant("CP_PER_BLOCK") + 1,
+           2 * source_constant("CP_PER_BLOCK") + 3]
 
 
 @pytest.fixture
@@ -226,6 +243,110 @@ def test_cp_project_kernel_against_eigh(cuda, batch):
     assert (kern - plain).abs().max().item() < 1e-4
     with pytest.raises(TypeError, match="complex64"):
         pallas_eigh.cp_project_pallas(h.to(torch.complex128))
+
+
+def one_q_case(cuda, batch, seed):
+    """dim = 2 float32 inputs on the card: A, counts of ``batch`` datasets
+    of 2000 shots and their linear-inversion start."""
+    a = process_tomo_A_matrix(1)
+    in32 = inputs_from_numpy(a, np.zeros((1, 36)), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n, _ = synth_process_datasets(gen, in32.a, 2, batch, 2000)
+    return in32, n, lanes_apg.linear_inversion_start(in32.a_pinv, n, 2)
+
+
+@pytest.mark.parametrize("batch", TAIL_1Q)
+def test_1q_kernel_at_a_tail_batch(cuda, batch):
+    """A batch that leaves the last block part empty and its last warp with
+    one live half: every problem within 1e-5 of the plain f32 solve after
+    one outer step (the bar of test_1q_kernel_against_plain_version), and
+    finite on the default schedule."""
+    assert batch % 2 and batch % source_constant("PROBLEMS_1Q")
+    in32, n, rho0 = one_q_case(cuda, batch, batch)
+    one = dict(phases=((1, 1, 1),))
+    step_k = lanes_apg.apg_fused_kernel(in32.ar, in32.ai, n, *rho0, dim=2,
+                                        **one)
+    step_p = lanes_apg.apg_fused_reference(in32.ar, in32.ai, n, *rho0, dim=2,
+                                           **one)
+    assert (torch.complex(*step_k) - torch.complex(*step_p)).abs().max() < 1e-5
+    full = torch.complex(*lanes_apg.apg_fused_kernel(in32.ar, in32.ai, n,
+                                                     *rho0, dim=2))
+    assert full.shape == (batch, 4, 4) and bool(torch.isfinite(full).all())
+
+
+def test_1q_estimate_does_not_depend_on_block_mates(cuda):
+    """A problem's dim = 2 estimate is bitwise the same whichever problems
+    share its warp and block: the first 1, 17 and 33 of 40 problems solved
+    alone equal the run on all 40 (default schedule)."""
+    in32, n, rho0 = one_q_case(cuda, 40, 5)
+
+    def solve(k):
+        return torch.complex(*lanes_apg.apg_fused_kernel(
+            in32.ar, in32.ai, n[:k].contiguous(),
+            *(x[:k].contiguous() for x in rho0), dim=2))
+
+    everything = solve(40)
+    for k in (1, 17, 33):
+        assert torch.equal(solve(k), everything[:k])
+
+
+def test_1q_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """dim = 2: float64, a wrong shape of the counts and counts on another
+    device raise; nothing falls back to the plain version."""
+    in32, n, rho0 = one_q_case(cuda, 4, 3)
+    with pytest.raises(TypeError, match="float32"):
+        lanes_apg.apg_fused_kernel(in32.ar, in32.ai, n.double(), *rho0, dim=2)
+    with pytest.raises(ValueError, match="shape"):
+        lanes_apg.apg_fused_kernel(in32.ar, in32.ai, n[:, :-1], *rho0, dim=2)
+    with pytest.raises(ValueError, match="must be on"):
+        lanes_apg.apg_fused_kernel(in32.ar, in32.ai, n.cpu(), *rho0, dim=2)
+
+
+def gaussian_hermitian(cuda, batch, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((batch, 16, 16), generator=gen, device=cuda,
+                    dtype=torch.complex64)
+    return (x + x.transpose(1, 2).conj()) / 2
+
+
+@pytest.mark.parametrize("batch", TAIL_CP)
+def test_cp_project_kernel_at_a_tail_batch(cuda, batch):
+    """A batch that leaves the last block part empty: within 1e-4 of the
+    plain f32 version after 1, 2 and 6 sweeps (one sweep is far from
+    converged, so this holds the rotations to the plain version's round
+    order) and of eigh in f64 after 6."""
+    assert batch % source_constant("CP_PER_BLOCK")
+    h = gaussian_hermitian(cuda, batch, batch)
+    for sweeps in (1, 2, 6):
+        kern = pallas_eigh.cp_project_pallas(h, sweeps=sweeps)
+        plain = pallas_eigh.cp_project_reference(h, sweeps)
+        assert (kern - plain).abs().max().item() < 1e-4, sweeps
+    exact = proj_choi_to_completely_positive(h.to(torch.complex128))
+    assert (kern.to(torch.complex128) - exact).abs().max().item() < 1e-4
+
+
+def test_cp_project_does_not_depend_on_block_mates(cuda):
+    """A matrix's positive part is bitwise the same whichever matrices share
+    its block: the first 1 and 9 of 20 projected alone equal the run on
+    all 20."""
+    h = gaussian_hermitian(cuda, 20, 9)
+    everything = pallas_eigh.cp_project_pallas(h)
+    for k in (1, 9):
+        assert torch.equal(pallas_eigh.cp_project_pallas(h[:k].contiguous()),
+                           everything[:k])
+
+
+def test_cp_project_rejects_what_the_kernel_does_not_take(cuda):
+    """Wrong dtype, shape or device raise; nothing falls back to the plain
+    version."""
+    h = gaussian_hermitian(cuda, 2, 1)
+    with pytest.raises(TypeError, match="complex64"):
+        pallas_eigh.cp_project_pallas(h.real.contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        pallas_eigh.cp_project_pallas(h[:, :8, :8])
+    with pytest.raises(ValueError, match="unsupported device"):
+        pallas_eigh.cp_project_pallas(torch.empty(
+            (2, 16, 16), dtype=torch.complex64, device="meta"))
 
 
 def random_kraus(gen, n_kraus):
