@@ -91,11 +91,11 @@ Phases, each of which must pass:
    same inputs, printed here), and leaves a few in ten thousand far from
    the physical set (counted in phase 10), where f32 cannot hold TP to
    1e-5 (the plain f32 version neither); the maxima are printed. Then the
-   same bar at B = 261 (``TAIL_BATCH_1Q``: the last block of sixteen
-   problems part empty, its last warp with one live half-warp), on a
-   generator of its own, and the first 5 and 17 of those problems solved
-   alone must be bitwise those of the B = 261 run (a problem does not
-   depend on its warp- or block-mates);
+   same bar at B = 261 (``TAIL_BATCH_1Q``: the last block of 64 problems
+   part empty, and its last warp of eight), on a generator of its own, and
+   the first 5, 17 and 69 of those problems solved alone must be bitwise
+   those of the B = 261 run (a problem does not depend on its warp- or
+   block-mates);
 10. the one-qubit main path: A from ``process_tomo_A_matrix(1)``,
    B = 16384 problems, 2000 shots, through
    ``tomography.pgdb_process_estimate_batched(dim=2, method="apg",
@@ -167,7 +167,7 @@ BATCH = 16384
 SHOTS = 2000
 CHECK_BATCH = 256
 TAIL_BATCH = 253       # not a multiple of PROBLEMS_PER_BLOCK_2Q
-TAIL_BATCH_1Q = 261    # odd, not a multiple of PROBLEMS_PER_BLOCK_1Q
+TAIL_BATCH_1Q = 261    # not a multiple of PROBLEMS_PER_BLOCK_1Q, nor of 8
 TAIL_BATCH_CP = 259    # not a multiple of CP_PER_BLOCK
 SCHEDULES = ("headline", "parity")
 # a schedule with the JAX package's (outer, dykstra, sweeps, sweeps_rest)
@@ -191,7 +191,7 @@ QV_TAIL = (5, 8, 10)   # depths of the bitwise check of a part-full block
 ROUTE_BATCH = 256      # problems of each per-problem route in phase 11
 CP_SWEEPS = 6
 PROBLEMS_PER_BLOCK_2Q = 4   # PROBLEMS_2Q of csrc/apg_fused.cu
-PROBLEMS_PER_BLOCK_1Q = 16  # PROBLEMS_1Q: one problem a half-warp
+PROBLEMS_PER_BLOCK_1Q = 64  # PROBLEMS_1Q: one problem a quad of lanes
 CP_PER_BLOCK = 8            # CP_PER_BLOCK: one matrix a warp
 PEAK_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
@@ -467,8 +467,8 @@ def main() -> int:
     print("ptxas " + "; ".join(
         f"{name}: {r} registers, {st}/{ld} B spill stores/loads"
         for name, (r, st, ld) in warp_regs.items())
-        + f" ({PROBLEMS_PER_BLOCK_1Q} problems a block, one a half-warp; "
-        f"{CP_PER_BLOCK} matrices a block, one a warp)")
+        + f" ({PROBLEMS_PER_BLOCK_1Q} problems a block, one a quad of "
+        f"lanes; {CP_PER_BLOCK} matrices a block, one a warp)")
 
     a_np = process_tomo_A_matrix(2)
     in32 = inputs_from_numpy(a_np, np.zeros((1, a_np.shape[0])), device=dev)
@@ -849,8 +849,8 @@ def main() -> int:
     print("plain32 on the host CPU against plain32 on the card: q50/q90/q99/"
           "max " + "/".join(f"{x:.3e}" for x in (
               *torch.quantile(spread, q).tolist(), spread.max().item())))
-    # a batch that leaves the last block part empty and its last warp with
-    # one live half, on a generator of its own (the later phases draw from
+    # a batch that leaves the last block and its last warp part empty, on
+    # a generator of its own (the later phases draw from
     # `gen` what they drew before); the first problems solved alone give
     # bitwise the same estimates
     n1_tail, _ = synth_process_datasets(
@@ -866,8 +866,8 @@ def main() -> int:
     kern = solve_1q(TAIL_BATCH_1Q)
     against_plain_1q(kern, plain_1q(lanes_apg, in_1q, n1_tail, torch.float32),
                      plain_1q(lanes_apg, in_1q, n1_tail, torch.float64))
-    alone = [torch.equal(solve_1q(k), kern[:k]) for k in (5, 17)]
-    print(f"check apg_fused_1q: B={TAIL_BATCH_1Q}, the first 5 and 17 "
+    alone = [torch.equal(solve_1q(k), kern[:k]) for k in (5, 17, 69)]
+    print(f"check apg_fused_1q: B={TAIL_BATCH_1Q}, the first 5, 17 and 69 "
           f"problems solved alone bitwise equal: {alone}")
     check(all(alone), "apg_fused_1q: a problem depends on its warp- or "
           "block-mates")

@@ -60,13 +60,15 @@
 //   not depend on its block-mates. Then the serial Jacobi rounds, n - 1 per
 //   sweep, each three steps (coefficients, column rotations, row rotations)
 //   with a barrier between them.
-// - D = 2 (apg_fused_1q_kernel): one problem per half-warp, its state in
-//   registers, entries exchanged by shuffles; A is 36 x 16 (4.6 KB in two
-//   planes), staged in shared memory once per block of PROBLEMS_1Q = 16
-//   problems (rows padded to 17 floats: lane l takes rows l, l + 16, ...
-//   without bank conflicts), so no pass touches device memory. The one
-//   __syncthreads is the staging's. What is left is instruction issue: the
-//   shuffles and the rotation coefficients of the serial Jacobi rounds.
+// - D = 2 (apg_fused_1q_kernel): one problem per quad of lanes, lane j
+//   holding column j of each matrix in registers, eight problems a warp;
+//   A is 36 x 16 (4.6 KB in two planes), staged in shared memory once per
+//   block of PROBLEMS_1Q = 64 problems with A^T beside it, so no pass
+//   touches device memory. The one __syncthreads is the staging's. What is
+//   left is instruction issue and latency: the serial Jacobi rounds (one
+//   set of rotation coefficients a lane and round serves its quad's
+//   column pair), the shuffles that gather a matrix into the quad, and the
+//   FMAs of the passes over A.
 //
 // cp_project (cp_project_kernel): one warp per 16x16 matrix, CP_PER_BLOCK =
 // 8 a block, M and V in the warp's slice of shared memory, __syncwarp
@@ -651,271 +653,362 @@ __global__ void __launch_bounds__(THREADS * P, 1)
   }
 }
 // ---------------------------------------------------------------------------
-// D = 2: one problem per half-warp, its state in registers.
+// D = 2: one problem per four lanes (a quad), its state in registers.
 //
-// Lane l of a half-warp holds Choi entry (i, j) = (l / 4, l % 4) of its
-// problem: est, prev, the Dykstra iterate and both corrections, and its
-// entries of M = V^dag H V and of the carried eigenbasis V. Entries move
-// between lanes by __shfl_sync within the half-warp (width 16), so no step
-// after the staging of A and the counts waits on a barrier. The schedule is
-// static and the problems past the batch run on zero counts and a zero
+// Lane j of a quad holds column j of each of its problem's 4 x 4 matrices:
+// est, prev, the Dykstra iterate and both corrections, M = V^dag H V and
+// the carried eigenbasis V. A warp serves eight problems. A Jacobi round's
+// column rotations exchange whole columns with the partner lane and its row
+// rotations are local; each lane computes the rotation coefficients of its
+// column's pair once for the round and takes the other pair's from a lane
+// of it. The products H V, V^dag T and V diag(w) V^dag gather the matrix
+// they need into every lane of the quad (__shfl_sync, width 4). No step
+// after the staging of A and the counts waits on a barrier. The schedule
+// is static and the problems past the batch run on zero counts and a zero
 // start, so every shuffle runs with the whole warp converged.
 // ---------------------------------------------------------------------------
 
-constexpr int PROBLEMS_1Q = 16;  // problems per block at D = 2
-static_assert(PROBLEMS_1Q * 16 == THREADS, "a problem is a half-warp");
-constexpr int SLOTS_1Q = 3;    // rows a lane takes in each chunk of A's rows
-constexpr int CHUNK_1Q = SLOTS_1Q * 16;   // rows of a chunk
+constexpr int PROBLEMS_1Q = 64;  // problems per block at D = 2
+static_assert(PROBLEMS_1Q * 4 == THREADS, "a problem is a quad of lanes");
+constexpr int SLOTS_1Q = 9;    // rows a lane takes in each chunk of A's rows
+constexpr int CHUNK_1Q = SLOTS_1Q * 4;  // rows of a chunk: the 1Q A's 36
+constexpr int X_STRIDE_1Q = 36;  // floats of a problem's operand slice
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // Rows of A and of the counts as the D = 2 kernel stages them: padded with
 // zero rows to whole chunks.
 __host__ __device__ constexpr int padded_rows_1q(int rows) {
   return (rows + CHUNK_1Q - 1) / CHUNK_1Q * CHUNK_1Q;
 }
-constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// x in lane `src` of this thread's half-warp.
-__device__ __forceinline__ float hw(float x, int src) {
-  return __shfl_sync(FULL_MASK, x, src, 16);
+// Column j of a 4 x 4 complex matrix: entry (i, j) in (re[i], im[i]).
+struct Col {
+  float re[4], im[4];
+};
+
+// x in lane `src` of this thread's quad.
+__device__ __forceinline__ float q4(float x, int src) {
+  return __shfl_sync(FULL_MASK, x, src, 4);
 }
 
-// This lane's entry x of a pair (p, q) of columns (ROW false) or rows (ROW
-// true) of a 4 x 4 matrix after a Jacobi rotation, the partner entry y in
-// lane `partner`: columns p <- c p - s conj(e) q, q <- s e p + c q; rows
-// p <- c p - s e q, q <- s conj(e) p + c q, as jacobi_sweeps. Written as
-// x <- c x -+ s g y, with the phase g and the sign picked by selects, so
-// that the lanes of p and of q run one instruction stream.
-template <bool ROW>
-__device__ __forceinline__ void rotate_1q(float& xr, float& xi, int partner,
-                                          bool is_p, float c, float sn,
-                                          float er, float ei) {
-  const float yr = hw(xr, partner), yi = hw(xi, partner);
-  const float gi = is_p != ROW ? -ei : ei;
-  const float ss = is_p ? -sn : sn;
-  const float tr = er * yr - gi * yi, ti = er * yi + gi * yr;
-  xr = c * xr + ss * tr;
-  xi = c * xi + ss * ti;
+// a[idx] for an index that depends on the lane, by selects: a register
+// array takes only constant indices.
+__device__ __forceinline__ float pick(const float (&a)[4], int idx) {
+  return idx == 0 ? a[0] : (idx == 1 ? a[1] : (idx == 2 ? a[2] : a[3]));
 }
 
-// `sweeps` cyclic-Jacobi sweeps of M and V (this lane's entries (i, j) in
-// mr/mi and vr/vi), rotation by rotation as jacobi_sweeps<2>: round r pairs
-// index x with x ^ (3 - r), which is c_pairs4[r]. The lanes of column j
-// compute the coefficients of the pair of j from M as the round starts; the
-// row rotation takes those of the pair of i from lane (i, i).
-__device__ void jacobi_1q(float& mr, float& mi, float& vr, float& vi,
-                          int sweeps, int l) {
-  const int i = l >> 2, j = l & 3;
-  for (int sw = 0; sw < sweeps; ++sw) {
+// The quad's matrix, whose column j lane j holds in c, in every lane:
+// out[k] = column k.
+__device__ __forceinline__ void gather(const Col& c, Col (&out)[4]) {
 #pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const int m = 3 - r;
-      const int p = min(j, j ^ m), q = max(j, j ^ m);
-      const float apq_r = hw(mr, p * 4 + q), apq_i = hw(mi, p * 4 + q);
-      const float app = hw(mr, p * 5), aqq = hw(mr, q * 5);
-      float c, sn, er, ei;
-      rotation_coeffs(apq_r, apq_i, app, aqq, c, sn, er, ei);
-      const float rc = hw(c, i * 5), rs = hw(sn, i * 5);
-      const float rer = hw(er, i * 5), rei = hw(ei, i * 5);
-      rotate_1q<false>(mr, mi, l ^ m, j == p, c, sn, er, ei);
-      rotate_1q<false>(vr, vi, l ^ m, j == p, c, sn, er, ei);
-      rotate_1q<true>(mr, mi, l ^ (m << 2), i < (i ^ m), rc, rs, rer, rei);
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[k].re[i] = q4(c.re[i], k);
+      out[k].im[i] = q4(c.im[i], k);
     }
   }
 }
 
-// CP projection, as warm_cp<2>, of the matrix whose entry l is (sr, si) in
-// the carried eigenbasis (vr/vi, rotated in place): hermitianize, T = H V,
-// M = V^dag T, the sweeps, then this lane's entry of
-// V diag(max(m_kk, 0)) V^dag. Every sum over k runs in order.
-__device__ void warm_cp_1q(float sr, float si, float& vr, float& vi,
-                           int sweeps, int l, float& pos_r, float& pos_i) {
-  const int i = l >> 2, j = l & 3;
-  const float hr = (sr + hw(sr, j * 4 + i)) / 2.f;
-  const float hi = (si - hw(si, j * 4 + i)) / 2.f;
-  float ar = hw(hr, i * 4), ai = hw(hi, i * 4);
-  float br = hw(vr, j), bi = hw(vi, j);
-  float tr = ar * br - ai * bi, ti = ar * bi + ai * br;
+// Rows p, q of this column: p <- c p - s e q, q <- s conj(e) p + c q, as
+// jacobi_sweeps (p, q constant).
+__device__ __forceinline__ void rotate_rows_1q(Col& x, int p, int q, float c,
+                                               float sn, float er, float ei) {
+  const float pr = x.re[p], pi = x.im[p], qr = x.re[q], qi = x.im[q];
+  const float tqr = er * qr - ei * qi, tqi = er * qi + ei * qr;
+  const float tpr = er * pr + ei * pi, tpi = er * pi - ei * pr;
+  x.re[p] = c * pr - sn * tqr;
+  x.im[p] = c * pi - sn * tqi;
+  x.re[q] = sn * tpr + c * qr;
+  x.im[q] = sn * tpi + c * qi;
+}
+
+// This column x, one of the pair (p, q), after the rotation of columns p
+// and q, y the other column: p <- c p - s conj(e) q, q <- s e p + c q, as
+// jacobi_sweeps; written x <- c x -+ s g y, the phase g and the sign picked
+// by selects, so that the lanes of p and of q run one instruction stream.
+__device__ __forceinline__ void rotate_col_1q(Col& x, const Col& y, bool is_p,
+                                              float c, float sn, float er,
+                                              float ei) {
+  const float gi = is_p ? -ei : ei;
+  const float ss = is_p ? -sn : sn;
 #pragma unroll
-  for (int k = 1; k < 4; ++k) {
-    ar = hw(hr, i * 4 + k);
-    ai = hw(hi, i * 4 + k);
-    br = hw(vr, k * 4 + j);
-    bi = hw(vi, k * 4 + j);
-    tr = tr + ar * br - ai * bi;
-    ti = ti + ar * bi + ai * br;
-  }
-  ar = hw(vr, i);
-  ai = hw(vi, i);
-  br = hw(tr, j);
-  bi = hw(ti, j);
-  float mr = ar * br + ai * bi, mi = ar * bi - ai * br;
-#pragma unroll
-  for (int k = 1; k < 4; ++k) {
-    ar = hw(vr, k * 4 + i);
-    ai = hw(vi, k * 4 + i);
-    br = hw(tr, k * 4 + j);
-    bi = hw(ti, k * 4 + j);
-    mr = mr + ar * br + ai * bi;
-    mi = mi + ar * bi - ai * br;
-  }
-  jacobi_1q(mr, mi, vr, vi, sweeps, l);
-  // this lane's entry of V diag(max(m_kk, 0))
-  const float w = fmaxf(hw(mr, j * 5), 0.f);
-  const float vwr = vr * w, vwi = vi * w;
-  pos_r = 0.f;
-  pos_i = 0.f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float xr = hw(vwr, i * 4 + k), xi = hw(vwi, i * 4 + k);
-    const float yr = hw(vr, j * 4 + k), yi = -hw(vi, j * 4 + k);
-    pos_r = pos_r + xr * yr - xi * yi;
-    pos_i = pos_i + xr * yi + xi * yr;
+  for (int i = 0; i < 4; ++i) {
+    const float tr = er * y.re[i] - gi * y.im[i];
+    const float ti = er * y.im[i] + gi * y.re[i];
+    x.re[i] = c * x.re[i] + ss * tr;
+    x.im[i] = c * x.im[i] + ss * ti;
   }
 }
 
-// TP projection X - kron(Tr_out(X) - I, I) / 2 of the matrix whose entry l
-// is (xr, xi), as proj_tp<2>: Tr_out(X)[a, c] = X[2a, 2c] + X[2a+1, 2c+1].
-__device__ void proj_tp_1q(float xr, float xi, int l, float& out_r,
-                           float& out_i) {
-  const int i = l >> 2, j = l & 3;
-  const int a = i >> 1, b = i & 1, c = j >> 1, d = j & 1;
-  const int src = 8 * a + 2 * c;
-  const float ptr = hw(xr, src) + hw(xr, src + 5);
-  const float pti = hw(xi, src) + hw(xi, src + 5);
-  out_r = xr;
-  out_i = xi;
-  if (b == d) {
-    out_r = xr - (ptr - (a == c ? 1.f : 0.f)) / 2.f;
-    out_i = xi - pti / 2.f;
+// `sweeps` cyclic-Jacobi sweeps of M and V (this lane's columns m and v),
+// rotation by rotation as jacobi_sweeps<2>: round r pairs index x with
+// x ^ (3 - r), which is c_pairs4[r]. The lanes of the pair of column j
+// compute its coefficients from M as the round starts; the row rotations
+// take the other pair's from lane j ^ 1 (j ^ 2 in round 2).
+__device__ void jacobi_1q(Col& m, Col& v, int sweeps, int j) {
+  for (int sw = 0; sw < sweeps; ++sw) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const int mm = 3 - r;             // round r pairs x with x ^ mm
+      const int jp = j ^ mm;
+      const bool is_p = j < jp;
+      const int p = is_p ? j : jp, q = is_p ? jp : j;
+      // M(p, q) is entry p ^ mm = p of column q; M(x, x) of column x
+      const float off_r = pick(m.re, jp), off_i = pick(m.im, jp);
+      const float dg = pick(m.re, j);
+      float c, sn, er, ei;
+      rotation_coeffs(q4(off_r, q), q4(off_i, q), q4(dg, p), q4(dg, q), c, sn,
+                      er, ei);
+      const int other = j ^ (mm == 1 ? 2 : 1);  // a lane of the other pair
+      const float c2 = q4(c, other), s2 = q4(sn, other);
+      const float er2 = q4(er, other), ei2 = q4(ei, other);
+      Col ym, yv;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ym.re[i] = q4(m.re[i], jp);
+        ym.im[i] = q4(m.im[i], jp);
+        yv.re[i] = q4(v.re[i], jp);
+        yv.im[i] = q4(v.im[i], jp);
+      }
+      rotate_col_1q(m, ym, is_p, c, sn, er, ei);
+      rotate_col_1q(v, yv, is_p, c, sn, er, ei);
+      // the round's pairs: (0, mm) and (pb, qb)
+      const int pb = mm == 1 ? 2 : 1, qb = mm == 3 ? 2 : 3;
+      const bool in_a = j == 0 || j == mm;
+      rotate_rows_1q(m, 0, mm, in_a ? c : c2, in_a ? sn : s2,
+                     in_a ? er : er2, in_a ? ei : ei2);
+      rotate_rows_1q(m, pb, qb, in_a ? c2 : c, in_a ? s2 : sn,
+                     in_a ? er2 : er, in_a ? ei2 : ei);
+    }
+  }
+}
+
+// CP projection, as warm_cp<2>, of the matrix whose column j is s, in the
+// carried eigenbasis (column v, rotated in place): hermitianize, T = H V,
+// M = V^dag T, the sweeps, then column j of V diag(max(m_kk, 0)) V^dag.
+// Every sum over k runs in order.
+__device__ void warm_cp_1q(const Col& s, Col& v, int sweeps, int j,
+                           Col& pos) {
+  Col g[4];
+  gather(s, g);
+  Col h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    h.re[i] = (s.re[i] + pick(g[i].re, j)) / 2.f;
+    h.im[i] = (s.im[i] - pick(g[i].im, j)) / 2.f;
+  }
+  gather(h, g);  // g[k].re[i] = H(i, k)
+  Col t;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float ar = g[0].re[i] * v.re[0] - g[0].im[i] * v.im[0];
+    float ai = g[0].re[i] * v.im[0] + g[0].im[i] * v.re[0];
+#pragma unroll
+    for (int k = 1; k < 4; ++k) {
+      ar = ar + g[k].re[i] * v.re[k] - g[k].im[i] * v.im[k];
+      ai = ai + g[k].re[i] * v.im[k] + g[k].im[i] * v.re[k];
+    }
+    t.re[i] = ar;
+    t.im[i] = ai;
+  }
+  gather(v, g);  // g[i].re[k] = V(k, i)
+  Col m;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float ar = g[i].re[0] * t.re[0] + g[i].im[0] * t.im[0];
+    float ai = g[i].re[0] * t.im[0] - g[i].im[0] * t.re[0];
+#pragma unroll
+    for (int k = 1; k < 4; ++k) {
+      ar = ar + g[i].re[k] * t.re[k] + g[i].im[k] * t.im[k];
+      ai = ai + g[i].re[k] * t.im[k] - g[i].im[k] * t.re[k];
+    }
+    m.re[i] = ar;
+    m.im[i] = ai;
+  }
+  jacobi_1q(m, v, sweeps, j);
+  const float w = fmaxf(pick(m.re, j), 0.f);  // max(m_jj, 0)
+  gather(v, g);                               // g[k].re[i] = V(i, k)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pos.re[i] = pos.im[i] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float wk = q4(w, k);
+    const float yr = pick(g[k].re, j), yi = -pick(g[k].im, j);  // V(j, k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float xr = g[k].re[i] * wk, xi = g[k].im[i] * wk;
+      pos.re[i] = pos.re[i] + xr * yr - xi * yi;
+      pos.im[i] = pos.im[i] + xr * yi + xi * yr;
+    }
+  }
+}
+
+// TP projection X - kron(Tr_out(X) - I, I) / 2 of the matrix whose column
+// j is x, as proj_tp<2>: Tr_out(X)[a, c] = X[2a, 2c] + X[2a+1, 2c+1].
+__device__ void proj_tp_1q(const Col& x, int j, Col& out) {
+  const int c = j >> 1, d = j & 1;
+  float ptr[2], pti[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    ptr[a] = q4(x.re[2 * a], 2 * c) + q4(x.re[2 * a + 1], 2 * c + 1);
+    pti[a] = q4(x.im[2 * a], 2 * c) + q4(x.im[2 * a + 1], 2 * c + 1);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int a = i >> 1, b = i & 1;
+    const bool on = b == d;
+    out.re[i] = on ? x.re[i] - (ptr[a] - (a == c ? 1.f : 0.f)) / 2.f
+                   : x.re[i];
+    out.im[i] = on ? x.im[i] - pti[a] / 2.f : x.im[i];
   }
 }
 
 // `iters` Dykstra iterations (CP then TP), as dykstra<2, SPLIT>, on the
-// matrix whose entry l is (zr, zi), which the result replaces.
+// matrix whose column j is z, which the result replaces.
 template <bool SPLIT>
-__device__ void dykstra_1q(int l, int iters, int sweeps, int sweeps_rest,
-                           float& vr, float& vi, float& zr, float& zi) {
-  float cp_r = 0.f, cp_i = 0.f, tp_r = 0.f, tp_i = 0.f;
-  float st_r = zr, st_i = zi;
+__device__ void dykstra_1q(int j, int iters, int sweeps, int sweeps_rest,
+                           Col& v, Col& z) {
+  Col cp, tp, st = z;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) cp.re[i] = cp.im[i] = tp.re[i] = tp.im[i] = 0.f;
   for (int it = 0; it < iters; ++it) {
-    const float pre_r = st_r - cp_r, pre_i = st_i - cp_i;
-    float pos_r, pos_i;
-    warm_cp_1q(pre_r, pre_i, vr, vi, SPLIT && it > 0 ? sweeps_rest : sweeps,
-               l, pos_r, pos_i);
-    cp_r = pos_r - pre_r;
-    cp_i = pos_i - pre_i;
-    const float pre2_r = pos_r - tp_r, pre2_i = pos_i - tp_i;
-    proj_tp_1q(pre2_r, pre2_i, l, st_r, st_i);
-    tp_r = st_r - pre2_r;
-    tp_i = st_i - pre2_i;
+    Col pre, pos, pre2;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      pre.re[i] = st.re[i] - cp.re[i];
+      pre.im[i] = st.im[i] - cp.im[i];
+    }
+    warm_cp_1q(pre, v, SPLIT && it > 0 ? sweeps_rest : sweeps, j, pos);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      cp.re[i] = pos.re[i] - pre.re[i];
+      cp.im[i] = pos.im[i] - pre.im[i];
+      pre2.re[i] = pos.re[i] - tp.re[i];
+      pre2.im[i] = pos.im[i] - tp.im[i];
+    }
+    proj_tp_1q(pre2, j, st);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      tp.re[i] = st.re[i] - pre2.re[i];
+      tp.im[i] = st.im[i] - pre2.im[i];
+    }
   }
-  zr = st_r;
-  zi = st_i;
+  z = st;
 }
 
 // The shared memory of a D = 2 block, in floats from the start of the
 // dynamic allocation, for A padded to `rp` rows (a whole number of chunks).
 // Each array starts on 16 bytes, so that float4 loads reach it.
 struct Smem1q {
-  int ar, ai;    // A, two planes, rp x PAD_1Q
-  int atr, ati;  // A^T, two planes, 16 x (rp + 4)
-  int n;         // the counts of the block's problems, P x rp
-  int eta;       // eta of each problem, P x rp
-  int x;         // the operand of each problem, P x 32 (real, then imaginary)
+  int at_stride;  // row stride of A^T: rp or rp + 4, whichever is 4 mod 8
+  int ar, ai;     // A, two planes, rp x PAD_1Q
+  int atr, ati;   // A^T, two planes, 16 x at_stride
+  int n;          // the counts of the block's problems, P x rp
+  int eta;        // eta of each problem, P x (rp + 4)
+  int x;          // the operand of each problem, P x X_STRIDE_1Q
   int total;
   __host__ __device__ explicit Smem1q(int rp) {
+    at_stride = (rp & 7) ? rp : rp + 4;
     ar = 0;
     ai = ar + rp * PAD_1Q;
     atr = ai + rp * PAD_1Q;
-    ati = atr + 16 * (rp + 4);
-    n = ati + 16 * (rp + 4);
+    ati = atr + 16 * at_stride;
+    n = ati + 16 * at_stride;
     eta = n + PROBLEMS_1Q * rp;
-    x = eta + PROBLEMS_1Q * rp;
-    total = x + PROBLEMS_1Q * 32;
+    x = eta + PROBLEMS_1Q * (rp + 4);
+    total = x + PROBLEMS_1Q * X_STRIDE_1Q;
   }
 };
 
-// A pass of this half-warp's problem g at the operand x (entry l in
-// xr/xi): p_r = max(Re(A x)_r, EPS_P), in chunks of CHUNK_1Q rows, lane l
-// taking rows l, l + 16, ... of a chunk. x goes through the problem's
-// slice of shared memory and is read back as float4 broadcasts; rows of A
-// are read as float4 (row stride PAD_1Q = 20 floats: a quarter-warp's eight
-// rows fall in distinct banks). Each p_r sums its k in order, A_r x_r then
+// A pass of the quad's problem g at the operand x (column j of it in x):
+// p_r = max(Re(A x)_r, EPS_P), in chunks of CHUNK_1Q rows, lane j taking
+// rows j, j + 4, ... of a chunk. x goes through the problem's slice of
+// shared memory and is read back as float4 broadcasts; rows of A are read
+// as float4 (row stride PAD_1Q = 20 floats: the rows of a quarter-warp
+// fall in distinct banks). Each p_r sums its k in order, A_r x_r then
 // -A_i x_i for each k. `rp` rows are a whole number of chunks: the kernel
 // pads A and the counts with zero rows, which add exactly nothing
-// (eta = 0, n log p = -0). With GRAD it sets the gradient entry l,
-// g_r = -sum_r A_r[r, l] eta_r and g_i = sum_r A_i[r, l] eta_r, r in
-// order, eta through shared memory and rows of A^T as float4 (row stride
-// rp + 4, 4 mod 8: the eight rows of a quarter-warp fall in distinct
-// banks), and returns 0; without, it returns -sum_r n_r log p_r, the same
-// in all 16 lanes (per-lane sums over its rows, then an xor tree).
+// (eta = 0, n log p = -0). With GRAD it sets the gradient entries of
+// column j, g_r = -sum_r A_r[r, e] eta_r and g_i = sum_r A_i[r, e] eta_r
+// for e = 4 i + j, r in order, eta through shared memory and rows of A^T as
+// float4, and returns 0; without, it returns -sum_r n_r log p_r, the same
+// in the quad's four lanes (per-lane sums over its rows, then an xor
+// tree).
 template <bool GRAD>
-__device__ float a_pass_1q(float* sm, const Smem1q& lay, int rp, int g, int l,
-                           float xr, float xi, float& g_r, float& g_i) {
+__device__ float a_pass_1q(float* sm, const Smem1q& lay, int rp, int g, int j,
+                           const Col& x, Col& grad) {
   constexpr int NN = Dims<2>::NN;
   const float* sn = sm + lay.n + g * rp;
-  float* seta = sm + lay.eta + g * rp;
-  float* sx = sm + lay.x + g * 32;
+  float* seta = sm + lay.eta + g * (rp + 4);
+  float* sx = sm + lay.x + g * X_STRIDE_1Q;
   __syncwarp();  // the last pass's reads of x and eta are done
-  sx[l] = xr;
-  sx[NN + l] = xi;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    sx[4 * i + j] = x.re[i];
+    sx[NN + 4 * i + j] = x.im[i];
+  }
   __syncwarp();
-  float part = 0.f, sum_r = 0.f, sum_i = 0.f;
+  float part = 0.f, sum_r[4] = {0.f, 0.f, 0.f, 0.f};
+  float sum_i[4] = {0.f, 0.f, 0.f, 0.f};
   for (int base = 0; base < rp; base += CHUNK_1Q) {
     float acc[SLOTS_1Q];
 #pragma unroll
     for (int s = 0; s < SLOTS_1Q; ++s) acc[s] = 0.f;
-    // rolled: unrolled, the loads of A hoisted ahead took 114 registers
 #pragma unroll 1
     for (int k = 0; k < NN; k += 4) {
       const float4 x_r = *reinterpret_cast<const float4*>(sx + k);
       const float4 x_i = *reinterpret_cast<const float4*>(sx + NN + k);
 #pragma unroll
       for (int s = 0; s < SLOTS_1Q; ++s) {
-        const int at = (base + s * NN + l) * PAD_1Q + k;
+        const int at = (base + 4 * s + j) * PAD_1Q + k;
         const float4 a_r = *reinterpret_cast<const float4*>(sm + lay.ar + at);
         const float4 a_i = *reinterpret_cast<const float4*>(sm + lay.ai + at);
-        float v = acc[s];
-        v = fmaf(-a_i.x, x_i.x, fmaf(a_r.x, x_r.x, v));
-        v = fmaf(-a_i.y, x_i.y, fmaf(a_r.y, x_r.y, v));
-        v = fmaf(-a_i.z, x_i.z, fmaf(a_r.z, x_r.z, v));
-        v = fmaf(-a_i.w, x_i.w, fmaf(a_r.w, x_r.w, v));
-        acc[s] = v;
+        float u = acc[s];
+        u = fmaf(-a_i.x, x_i.x, fmaf(a_r.x, x_r.x, u));
+        u = fmaf(-a_i.y, x_i.y, fmaf(a_r.y, x_r.y, u));
+        u = fmaf(-a_i.z, x_i.z, fmaf(a_r.z, x_r.z, u));
+        u = fmaf(-a_i.w, x_i.w, fmaf(a_r.w, x_r.w, u));
+        acc[s] = u;
       }
     }
 #pragma unroll
     for (int s = 0; s < SLOTS_1Q; ++s) {
       const float p = fmaxf(acc[s], EPS_P);
-      const float nv = sn[base + s * NN + l];
+      const float nv = sn[base + 4 * s + j];
       if (GRAD)
-        seta[base + s * NN + l] = nv / p;
+        seta[base + 4 * s + j] = nv / p;
       else
         part += nv * logf(p);
     }
     if (GRAD) {
       __syncwarp();
-      const float* atr = sm + lay.atr + l * (rp + 4) + base;
-      const float* ati = sm + lay.ati + l * (rp + 4) + base;
 #pragma unroll
       for (int r = 0; r < CHUNK_1Q; r += 4) {
         const float4 e = *reinterpret_cast<const float4*>(seta + base + r);
-        const float4 ar = *reinterpret_cast<const float4*>(atr + r);
-        const float4 ai = *reinterpret_cast<const float4*>(ati + r);
-        sum_r = fmaf(ar.w, e.w, fmaf(ar.z, e.z, fmaf(ar.y, e.y,
-                     fmaf(ar.x, e.x, sum_r))));
-        sum_i = fmaf(ai.w, e.w, fmaf(ai.z, e.z, fmaf(ai.y, e.y,
-                     fmaf(ai.x, e.x, sum_i))));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int at = (4 * i + j) * lay.at_stride + base + r;
+          const float4 ar = *reinterpret_cast<const float4*>(sm + lay.atr + at);
+          const float4 ai = *reinterpret_cast<const float4*>(sm + lay.ati + at);
+          sum_r[i] = fmaf(ar.w, e.w, fmaf(ar.z, e.z, fmaf(ar.y, e.y,
+                          fmaf(ar.x, e.x, sum_r[i]))));
+          sum_i[i] = fmaf(ai.w, e.w, fmaf(ai.z, e.z, fmaf(ai.y, e.y,
+                          fmaf(ai.x, e.x, sum_i[i]))));
+        }
       }
     }
   }
   if (GRAD) {
-    g_r = -sum_r;
-    g_i = sum_i;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      grad.re[i] = -sum_r[i];
+      grad.im[i] = sum_i[i];
+    }
     return 0.f;
   }
-#pragma unroll
-  for (int off = NN / 2; off > 0; off >>= 1)
-    part += __shfl_xor_sync(FULL_MASK, part, off);
+  part += __shfl_xor_sync(FULL_MASK, part, 2);
+  part += __shfl_xor_sync(FULL_MASK, part, 1);
   return -part;
 }
 
@@ -933,7 +1026,7 @@ __global__ void __launch_bounds__(THREADS)
   extern __shared__ __align__(16) float dyn[];
   const int rp = padded_rows_1q(rows);
   const Smem1q lay(rp);
-  const int t = threadIdx.x, g = t / NN, l = t % NN;
+  const int t = threadIdx.x, g = t >> 2, j = t & 3;
   const size_t first = static_cast<size_t>(blockIdx.x) * P;
   const size_t b = first + g;
   const bool live = b < static_cast<size_t>(batch);
@@ -944,8 +1037,8 @@ __global__ void __launch_bounds__(THREADS)
     const float vr = r < rows ? a_r[k] : 0.f, vi = r < rows ? a_i[k] : 0.f;
     dyn[lay.ar + r * PAD_1Q + c] = vr;
     dyn[lay.ai + r * PAD_1Q + c] = vi;
-    dyn[lay.atr + c * (rp + 4) + r] = vr;
-    dyn[lay.ati + c * (rp + 4) + r] = vi;
+    dyn[lay.atr + c * lay.at_stride + r] = vr;
+    dyn[lay.ati + c * lay.at_stride + r] = vi;
   }
   // problems past the batch run on zero counts and a zero start, and are
   // not written back
@@ -955,46 +1048,57 @@ __global__ void __launch_bounds__(THREADS)
     dyn[lay.n + k] = prob < static_cast<size_t>(batch) && r < rows
                          ? n[prob * rows + r] : 0.f;
   }
-  float vr = (l >> 2) == (l & 3) ? 1.f : 0.f, vi = 0.f;
-  float est_r = live ? rho0_r[b * NN + l] : 0.f;
-  float est_i = live ? rho0_i[b * NN + l] : 0.f;
+  Col v, est;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v.re[i] = i == j ? 1.f : 0.f;
+    v.im[i] = 0.f;
+    est.re[i] = live ? rho0_r[b * NN + 4 * i + j] : 0.f;
+    est.im[i] = live ? rho0_i[b * NN + 4 * i + j] : 0.f;
+  }
   // A and the counts are staged by the whole block: the kernel's one barrier
   __syncthreads();
-  float g_r, g_i;
-  dykstra_1q<false>(l, sch.init_iters, sch.init_sweeps, sch.init_sweeps, vr,
-                    vi, est_r, est_i);
+  Col grad;
+  dykstra_1q<false>(j, sch.init_iters, sch.init_sweeps, sch.init_sweeps, v,
+                    est);
 
-  float prev_r = est_r, prev_i = est_i;
+  Col prev = est;
   float tk = 1.f;
-  float old_cost = a_pass_1q<false>(dyn, lay, rp, g, l, est_r, est_i, g_r,
-                                    g_i);
+  float old_cost = a_pass_1q<false>(dyn, lay, rp, g, j, est, grad);
   for (int ph = 0; ph < sch.n_phases; ++ph) {
     for (int it = 0; it < sch.outer[ph]; ++it) {
       const float t_next = (1.f + sqrtf(1.f + 4.f * tk * tk)) / 2.f;
       const float beta = (tk - 1.f) / t_next;
-      const float y_r = est_r + beta * (est_r - prev_r);
-      const float y_i = est_i + beta * (est_i - prev_i);
-      a_pass_1q<true>(dyn, lay, rp, g, l, y_r, y_i, g_r, g_i);
-      float z_r = y_r - sch.inv_mu * g_r;
-      float z_i = y_i - sch.inv_mu * g_i;
-      dykstra_1q<SPLIT>(l, sch.dykstra[ph], sch.sweeps[ph],
-                        rest.sweeps_rest[ph], vr, vi, z_r, z_i);
-      const float new_cost = a_pass_1q<false>(dyn, lay, rp, g, l, z_r, z_i,
-                                              g_r, g_i);
+      Col y, z;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        y.re[i] = est.re[i] + beta * (est.re[i] - prev.re[i]);
+        y.im[i] = est.im[i] + beta * (est.im[i] - prev.im[i]);
+      }
+      a_pass_1q<true>(dyn, lay, rp, g, j, y, grad);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        z.re[i] = y.re[i] - sch.inv_mu * grad.re[i];
+        z.im[i] = y.im[i] - sch.inv_mu * grad.im[i];
+      }
+      dykstra_1q<SPLIT>(j, sch.dykstra[ph], sch.sweeps[ph],
+                        rest.sweeps_rest[ph], v, z);
+      const float new_cost = a_pass_1q<false>(dyn, lay, rp, g, j, z, grad);
       // O'Donoghue-Candes function restart
       tk = new_cost > old_cost ? 1.f : t_next;
-      prev_r = est_r;
-      prev_i = est_i;
-      est_r = z_r;
-      est_i = z_i;
+      prev = est;
+      est = z;
       old_cost = new_cost;
     }
   }
-  dykstra_1q<SPLIT>(l, sch.final_iters, sch.final_sweeps,
-                    rest.final_sweeps_rest, vr, vi, est_r, est_i);
+  dykstra_1q<SPLIT>(j, sch.final_iters, sch.final_sweeps,
+                    rest.final_sweeps_rest, v, est);
   if (live) {
-    out_r[b * NN + l] = est_r;
-    out_i[b * NN + l] = est_i;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out_r[b * NN + 4 * i + j] = est.re[i];
+      out_i[b * NN + 4 * i + j] = est.im[i];
+    }
   }
 }
 

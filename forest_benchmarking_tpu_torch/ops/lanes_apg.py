@@ -365,7 +365,7 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
     Takes what :func:`apg_fused_reference` takes, as contiguous float32
     CUDA tensors, and returns the same (est_r, est_i) planes. ``dim`` is 4
     (four problems per thread block; the kernel also reads A^T, which is
-    formed here) or 2 (sixteen per block). Adds one to
+    formed here) or 2 (64 per block). Adds one to
     ``apg_fused.launches`` per launch."""
     if dim not in (2, 4):
         raise NotImplementedError(

@@ -37,7 +37,8 @@ def source_constant(name: str) -> int:
 
 
 # batches that leave the last block part empty and, at dim = 2, the last
-# warp half empty (a problem is a half-warp; a CP matrix is a warp)
+# warp too (a problem is a quad of lanes, eight a warp; a CP matrix is a
+# warp)
 TAIL_1Q = [source_constant("PROBLEMS_1Q") + 1,
            3 * source_constant("PROBLEMS_1Q") + 5]
 TAIL_CP = [source_constant("CP_PER_BLOCK") + 1,
@@ -257,11 +258,11 @@ def one_q_case(cuda, batch, seed):
 
 @pytest.mark.parametrize("batch", TAIL_1Q)
 def test_1q_kernel_at_a_tail_batch(cuda, batch):
-    """A batch that leaves the last block part empty and its last warp with
-    one live half: every problem within 1e-5 of the plain f32 solve after
+    """A batch that leaves the last block and its last warp part empty:
+    every problem within 1e-5 of the plain f32 solve after
     one outer step (the bar of test_1q_kernel_against_plain_version), and
     finite on the default schedule."""
-    assert batch % 2 and batch % source_constant("PROBLEMS_1Q")
+    assert batch % 8 and batch % source_constant("PROBLEMS_1Q")
     in32, n, rho0 = one_q_case(cuda, batch, batch)
     one = dict(phases=((1, 1, 1),))
     step_k = lanes_apg.apg_fused_kernel(in32.ar, in32.ai, n, *rho0, dim=2,
@@ -276,17 +277,17 @@ def test_1q_kernel_at_a_tail_batch(cuda, batch):
 
 def test_1q_estimate_does_not_depend_on_block_mates(cuda):
     """A problem's dim = 2 estimate is bitwise the same whichever problems
-    share its warp and block: the first 1, 17 and 33 of 40 problems solved
-    alone equal the run on all 40 (default schedule)."""
-    in32, n, rho0 = one_q_case(cuda, 40, 5)
+    share its warp and block: the first 1, 17 and 65 of 80 problems solved
+    alone equal the run on all 80, two blocks (default schedule)."""
+    in32, n, rho0 = one_q_case(cuda, 80, 5)
 
     def solve(k):
         return torch.complex(*lanes_apg.apg_fused_kernel(
             in32.ar, in32.ai, n[:k].contiguous(),
             *(x[:k].contiguous() for x in rho0), dim=2))
 
-    everything = solve(40)
-    for k in (1, 17, 33):
+    everything = solve(80)
+    for k in (1, 17, 65):
         assert torch.equal(solve(k), everything[:k])
 
 

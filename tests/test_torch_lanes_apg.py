@@ -351,39 +351,44 @@ def test_smoke_check_counts_the_kernels_problems_per_block():
 
 def test_smoke_and_card_tail_batches_leave_a_part_empty_last_unit():
     """The tail batches of chip_smoke.py and of the on-card tests leave the
-    last block of the dim = 2 kernel part empty with one live half-warp in
-    its last warp (a problem is a half-warp), and the last block of the CP
-    kernel part empty (a matrix is a warp); the per-block constants they
-    use are the kernel source's."""
+    last block of the dim = 2 kernel and its last warp part empty (a problem
+    is a quad of lanes, eight a warp), and the last block of the CP kernel
+    part empty (a matrix is a warp); the per-block constants they use are
+    the kernel source's."""
     src = (kernels.CSRC / "apg_fused.cu").read_text()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
     per_1q, per_cp = const("PROBLEMS_1Q"), const("CP_PER_BLOCK")
-    assert const("THREADS") == 16 * per_1q == 32 * per_cp
+    assert const("THREADS") == 4 * per_1q == 32 * per_cp
     smoke = _script(ROOT / "chip_smoke.py")
     assert (smoke.PROBLEMS_PER_BLOCK_1Q, smoke.CP_PER_BLOCK) == (per_1q,
                                                                  per_cp)
     on_card = _script(ROOT / "tests" / "test_torch_cuda.py")
     for batch in [smoke.TAIL_BATCH_1Q, *on_card.TAIL_1Q]:
-        assert batch % per_1q and batch % 2, batch
+        assert batch % per_1q and batch % 8, batch
     for batch in [smoke.TAIL_BATCH_CP, *on_card.TAIL_CP]:
         assert batch % per_cp, batch
 
 
 def test_warp_kernels_pair_rules_match_the_tables():
-    """The dim = 2 kernel pairs index x with x ^ (3 - r) in round r, and
+    """The dim = 2 kernel pairs index x with x ^ (3 - r) in round r (and
+    rotates rows (0, 3 - r) and the other two in it), and
     the CP kernel moves pair k's two players from seats k and 15 - k one
     seat down a round (seat 0 stays, 1 wraps to 15): both are the source's
     round-robin tables, which are _round_robin_pairs."""
     src = (kernels.CSRC / "apg_fused.cu").read_text()
-    assert "j ^ m" in src and "const int m = 3 - r;" in src
+    assert "const int mm = 3 - r;" in src and "const int jp = j ^ mm;" in src
+    assert "const int pb = mm == 1 ? 2 : 1, qb = mm == 3 ? 2 : 3;" in src
     assert "return x == 0 ? 0 : (x == 1 ? 15 : x - 1);" in src
     assert "int x = k, y = 15 - k;" in src
     for r, pairs in enumerate(lanes_apg._round_robin_pairs(4)):
-        assert sorted({(min(x, x ^ (3 - r)), max(x, x ^ (3 - r)))
+        mm = 3 - r
+        assert sorted({(min(x, x ^ mm), max(x, x ^ mm))
                        for x in range(4)}) == sorted(pairs)
+        assert sorted(pairs) == sorted([(0, mm), (2 if mm == 1 else 1,
+                                                  2 if mm == 3 else 3)])
 
     def next_seat(x):
         return 0 if x == 0 else (15 if x == 1 else x - 1)
