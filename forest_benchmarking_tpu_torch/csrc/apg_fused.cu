@@ -141,26 +141,15 @@ __constant__ unsigned char c_pairs16[15][8][2] = {
     {{0, 1}, {2, 15}, {3, 14}, {4, 13}, {5, 12}, {6, 11}, {7, 10}, {8, 9}},
 };
 
-// _round_robin_pairs(4): 3 rounds of 2 disjoint pairs (p < q).
-__constant__ unsigned char c_pairs4[3][2][2] = {
-    {{0, 3}, {1, 2}},
-    {{0, 2}, {1, 3}},
-    {{0, 1}, {2, 3}},
-};
-
 template <int D>
 using Pairs = unsigned char[Dims<D>::NROUNDS][Dims<D>::NPAIRS][2];
 
-// Copy the pair table of dimension D into shared memory (threads < its size).
+// Copy the pair table into shared memory (threads < its size).
 template <int D>
 __device__ __forceinline__ void load_pairs(Pairs<D>& pairs, int t) {
+  static_assert(D == 4, "the block-wide sweeps serve the D = 4 kernel");
   constexpr int SIZE = Dims<D>::NROUNDS * Dims<D>::NPAIRS * 2;
-  const unsigned char* src;
-  if constexpr (D == 4)
-    src = &c_pairs16[0][0][0];
-  else
-    src = &c_pairs4[0][0][0];
-  if (t < SIZE) (&pairs[0][0][0])[t] = src[t];
+  if (t < SIZE) (&pairs[0][0][0])[t] = (&c_pairs16[0][0][0])[t];
 }
 
 // The matrices the Jacobi sweeps rotate: M, V and one round's coefficients.
@@ -652,6 +641,7 @@ __global__ void __launch_bounds__(THREADS * P, 1)
     out_i[b * NN + l] = est_i;
   }
 }
+
 // ---------------------------------------------------------------------------
 // D = 2: one problem per four lanes (a quad), its state in registers.
 //
@@ -672,7 +662,9 @@ constexpr int PROBLEMS_1Q = 64;  // problems per block at D = 2
 static_assert(PROBLEMS_1Q * 4 == THREADS, "a problem is a quad of lanes");
 constexpr int SLOTS_1Q = 9;    // rows a lane takes in each chunk of A's rows
 constexpr int CHUNK_1Q = SLOTS_1Q * 4;  // rows of a chunk: the 1Q A's 36
-constexpr int X_STRIDE_1Q = 36;  // floats of a problem's operand slice
+// floats of a problem's operand slice: 32, and 4 more so that the two
+// problems of a quarter-warp read their float4s from distinct banks
+constexpr int X_STRIDE_1Q = 36;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // Rows of A and of the counts as the D = 2 kernel stages them: padded with
@@ -742,8 +734,8 @@ __device__ __forceinline__ void rotate_col_1q(Col& x, const Col& y, bool is_p,
 }
 
 // `sweeps` cyclic-Jacobi sweeps of M and V (this lane's columns m and v),
-// rotation by rotation as jacobi_sweeps<2>: round r pairs index x with
-// x ^ (3 - r), which is c_pairs4[r]. The lanes of the pair of column j
+// rotation by rotation as jacobi_sweeps<2> would: round r pairs index x
+// with x ^ (3 - r), which is _round_robin_pairs(4)[r]. The lanes of the pair of column j
 // compute its coefficients from M as the round starts; the row rotations
 // take the other pair's from lane j ^ 1 (j ^ 2 in round 2).
 __device__ void jacobi_1q(Col& m, Col& v, int sweeps, int j) {

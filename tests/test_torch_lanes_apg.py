@@ -230,17 +230,16 @@ def test_use_pallas_keyword_changes_nothing_on_the_cpu(dim):
 
 
 def test_cuda_source_tables_match_python():
-    """The kernel's round-robin pair tables (n = 16 for dim=4, n = 4 for
-    dim=2) and schedule width equal the Python side's (the kernel runs only
-    on the card; its source can be read anywhere)."""
+    """The kernel's round-robin pair table (n = 16, the dim=4 kernel's; the
+    dim=2 and CP kernels follow rules pinned below) and schedule width
+    equal the Python side's (the kernel runs only on the card; its source
+    can be read anywhere)."""
     src = (kernels.CSRC / "apg_fused.cu").read_text()
-    for n in (16, 4):
-        decl = f"c_pairs{n}[{n - 1}][{n // 2}][2] = {{"
-        body = src.split(decl, 1)[1].split("};", 1)[0]
-        pairs = [tuple(map(int, m))
-                 for m in re.findall(r"\{(\d+), (\d+)\}", body)]
-        want = [p for rnd in lanes_apg._round_robin_pairs(n) for p in rnd]
-        assert pairs == want, n
+    body = src.split("c_pairs16[15][8][2] = {", 1)[1].split("};", 1)[0]
+    pairs = [tuple(map(int, m))
+             for m in re.findall(r"\{(\d+), (\d+)\}", body)]
+    assert pairs == [p for rnd in lanes_apg._round_robin_pairs(16)
+                     for p in rnd]
     width = int(re.search(r"#define APG_MAX_PHASES (\d+)", src).group(1))
     assert width == kernels.MAX_PHASES
     fields = [f[0] for f in kernels.ApgSchedule._fields_]
@@ -374,10 +373,10 @@ def test_smoke_and_card_tail_batches_leave_a_part_empty_last_unit():
 
 def test_warp_kernels_pair_rules_match_the_tables():
     """The dim = 2 kernel pairs index x with x ^ (3 - r) in round r (and
-    rotates rows (0, 3 - r) and the other two in it), and
-    the CP kernel moves pair k's two players from seats k and 15 - k one
-    seat down a round (seat 0 stays, 1 wraps to 15): both are the source's
-    round-robin tables, which are _round_robin_pairs."""
+    rotates rows (0, 3 - r) and the other two in it), and the CP kernel
+    moves pair k's two players from seats k and 15 - k one seat down a
+    round (seat 0 stays, 1 wraps to 15): both give the pairs of
+    _round_robin_pairs, round by round."""
     src = (kernels.CSRC / "apg_fused.cu").read_text()
     assert "const int mm = 3 - r;" in src and "const int jp = j ^ mm;" in src
     assert "const int pb = mm == 1 ? 2 : 1, qb = mm == 3 ? 2 : 3;" in src
