@@ -850,9 +850,9 @@ def main() -> int:
           "max " + "/".join(f"{x:.3e}" for x in (
               *torch.quantile(spread, q).tolist(), spread.max().item())))
     # a batch that leaves the last block and its last warp part empty, on
-    # a generator of its own (the later phases draw from
-    # `gen` what they drew before); the first problems solved alone give
-    # bitwise the same estimates
+    # a generator of its own (the later phases draw from `gen` what they
+    # drew before); the first problems solved alone give bitwise the same
+    # estimates
     n1_tail, _ = synth_process_datasets(
         torch.Generator(device=dev).manual_seed(SEED + 6), a1, 2,
         TAIL_BATCH_1Q, SHOTS)
