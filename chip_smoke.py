@@ -53,7 +53,12 @@ Phases, each of which must pass:
    CPTP stacks), small C and T, under the same bar; and at depths 5, 8 and
    10, T = 500: the kernel run on the first 256 and on the first 7
    uniforms gives bitwise the first columns of the run on all 500 (a
-   column does not depend on its block-mates);
+   column does not depend on its block-mates). The ideal kernel, on a
+   generator of its own, at every depth from 2 to 10 at C = 16 (2, 3, 4, 5,
+   6, 9, 10; 7 and 8 above) and at a tail count (``ideal_tail_circuits``:
+   the last block, and at depths below 7 the last warp's lane groups, part
+   empty), under the same bars; the first rows of each tail count rerun
+   alone give bitwise the same floats;
 7. the quantum-volume main path at full width through
    ``quantum_volume.sample_heavy_outputs_batched(device="cuda")``: depth 8,
    C = 1600 circuits, 1000 shots, ideal and with 2% depolarizing noise by
@@ -65,11 +70,16 @@ Phases, each of which must pass:
 8. timing with CUDA events (one warm-up, median of 3) at C = 1600 (T = 1000)
    of each quantum-volume kernel alone (on laid-out inputs), of its wrapper
    (and the wrapper's time beyond the kernel's) and of its plain version,
-   with circuits/s, the bound and the share of the bound; the full-size
-   kernel-against-plain check uses these outputs; the registers, spills and
-   stack of every depth instantiation of the trajectory kernel (ptxas); a
-   ``torch.profiler`` pass over the trajectory wrapper alone, which must
-   launch no matrix product (W and M' are formed in the kernel). The
+   with circuits/s, the bound and the share of the bound; the ideal kernel
+   and its wrapper also as the mean of ``QUEUED`` calls enqueued behind a
+   device sleep (``queued_ms``: the card runs them back to back, so the
+   host's time per call stays out), beside the host's time per wrapper
+   call, at depths 8 and 4; the full-size kernel-against-plain check uses
+   these outputs; the registers, spills and stack of every depth
+   instantiation of both kernels (ptxas); a ``torch.profiler`` pass over
+   each wrapper alone: the trajectory wrapper must launch no matrix product
+   (W and M' are formed in the kernel), the ideal wrapper nothing but the
+   ideal kernel, once (it forms the boundary maps itself). The
    Haar draw of a depth-8 call (Gram-Schmidt) beside ``torch.linalg.qr``
    on a draw of the same size (one warm-up, one run). Then
    ``quantum_volume.measure_quantum_volume_batched(max_depth=8,
@@ -138,7 +148,8 @@ of the operations over 67 TFLOP/s (f32 outside the tensor cores) and the
 bytes of the function's own inputs, each read once, and its output, written
 once, over 3.35 TB/s (not the layouts a wrapper derives from them);
 ``max_abs_err``: APG, the largest |kernel - plain f64| of the B = 16384
-check; ideal, the largest |kernel - plain f32| at C = 1600; trajectory, the
+check; ideal, the largest |kernel - plain f32| at C = 1600, with ``ms`` and
+``wrapper_ms`` from ``queued_ms`` and ``registers`` by depth; trajectory, the
 same over the trajectories whose branch choices agree (column deviation
 under 1e-4), with ``agree_share``, the share of trajectories that do, and
 ``max_abs_err_all``, the largest deviation over all of them; one-qubit APG,
@@ -193,11 +204,22 @@ CP_SWEEPS = 6
 PROBLEMS_PER_BLOCK_2Q = 4   # PROBLEMS_2Q of csrc/apg_fused.cu
 PROBLEMS_PER_BLOCK_1Q = 64  # PROBLEMS_1Q: one problem a quad of lanes
 CP_PER_BLOCK = 8            # CP_PER_BLOCK: one matrix a warp
+IDEAL_WARPS = 4             # IDEAL_WARPS of csrc/qv_traj.cu: warps a block
+QUEUED = 100                # calls a sample of queued_ms times
+SLEEP_CYCLES = 40_000_000   # the device sleep ahead of them (~20 ms)
 PEAK_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # the dim = 4 kernel with one problem per block, B = 16384, headline /
 # parity schedule (PERF.md, NVIDIA H100 80GB HBM3 at 700 W)
 ONE_PER_BLOCK_MS = (64.658, 584.640)
+
+
+def ideal_tail_circuits(depth: int) -> int:
+    """A circuit count that leaves the ideal kernel's last block part empty
+    and, where a warp holds several circuits (a group of 2^(depth-2) lanes a
+    circuit below depth 7), its last warp's lane groups too."""
+    per_warp = 32 >> (depth - 2) if depth < 7 else 1
+    return IDEAL_WARPS * per_warp + per_warp + max(per_warp // 2, 1)
 
 
 class SmokeFailure(RuntimeError):
@@ -240,6 +262,29 @@ def cuda_ms(fn, reps: int = 3):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), out
+
+
+def queued_ms(fn, launches: int = QUEUED, reps: int = 3):
+    """(median milliseconds per call of ``fn()``, host milliseconds per
+    call): each of ``reps`` samples enqueues ``launches`` calls behind a
+    device sleep, so that the card runs them back to back and the host's
+    time per call stays out of the device time; one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times, host = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        host.append(1e3 * (time.perf_counter() - t0) / launches)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times), statistics.median(host)
 
 
 def against_plain(lanes_apg, name, kern, in32, in64, n, cfg, plain32=None):
@@ -381,13 +426,13 @@ def random_kraus(haar_rand_unitary, gen, n_kraus: int) -> torch.Tensor:
     return u[:, :4].reshape(n_kraus, 4, 4).contiguous()
 
 
-def traj_ptxas(log: str) -> dict:
+def depth_ptxas(log: str, kernel: str) -> dict:
     """{depth: (registers, spill stores, spill loads, stack bytes)} of the
-    trajectory kernel's instantiations in a ``-Xptxas -v`` build log."""
+    depth instantiations of ``kernel`` in a ``-Xptxas -v`` build log."""
     out, depth, props = {}, None, (0, 0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"traj_probs_kernelILi(\d+)E", line)
+            m = re.search(rf"{kernel}ILi(\d+)E", line)
             depth = int(m.group(1)) if m else None
         elif depth is not None and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
@@ -411,6 +456,23 @@ def kernel_ptxas(log: str, name: str):
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
             return regs, spill[1], spill[2]
     raise SmokeFailure(f"no ptxas report for {name}")
+
+
+def check_ideal(pallas_traj, perms, gates, depth: int) -> torch.Tensor:
+    """The ideal kernel's result, held within 2e-6 of the plain f32 version
+    and 1e-5 of the plain f64 version on the same circuits."""
+    kern = pallas_traj.ideal_probs_kernel(perms, gates, depth)
+    plain32 = pallas_traj.ideal_probs_reference(perms, gates, depth)
+    plain64 = pallas_traj.ideal_probs_reference(
+        perms, gates.to(torch.complex128), depth)
+    torch.cuda.synchronize()
+    e32 = (kern - plain32).abs().max().item()
+    e64 = (kern.double() - plain64).abs().max().item()
+    print(f"check ideal_probs: depth {depth} C={perms.shape[0]} "
+          f"max|kernel-plain32|={e32:.3e} max|kernel-plain64|={e64:.3e}")
+    check(e32 <= 2e-6 and e64 <= 1e-5, f"ideal_probs depth {depth} "
+          f"C={perms.shape[0]}: {e32:.3e} / {e64:.3e}")
+    return kern
 
 
 def traj_agreement(kern: torch.Tensor, plain: torch.Tensor):
@@ -595,17 +657,7 @@ def main() -> int:
     for depth, n_traj in QV_CHECKS:
         perms, gates, uni = qv_inputs(quantum_volume, haar_rand_unitary,
                                       gen, depth, QV_CHECK_C, n_traj)
-        kern = pallas_traj.ideal_probs_kernel(perms, gates, depth)
-        plain32 = pallas_traj.ideal_probs_reference(perms, gates, depth)
-        plain64 = pallas_traj.ideal_probs_reference(
-            perms, gates.to(torch.complex128), depth)
-        torch.cuda.synchronize()
-        e32 = (kern - plain32).abs().max().item()
-        e64 = (kern.double() - plain64).abs().max().item()
-        print(f"check ideal_probs: depth {depth} C={QV_CHECK_C} "
-              f"max|kernel-plain32|={e32:.3e} max|kernel-plain64|={e64:.3e}")
-        check(e32 <= 2e-6 and e64 <= 1e-5,
-              f"ideal_probs depth {depth}: {e32:.3e} / {e64:.3e}")
+        check_ideal(pallas_traj, perms, gates, depth)
         kern = pallas_traj.traj_probs_kernel(perms, gates, kraus, uni, depth)
         plain = pallas_traj.traj_probs_reference(perms, gates, kraus, uni,
                                                  depth)
@@ -646,6 +698,24 @@ def main() -> int:
               f"columns rerun alone bitwise equal: {same}")
         check(all(same), f"traj_probs depth {depth}: a column depends on "
               f"its block-mates")
+    # the ideal kernel at every depth layout, at C = 16 and at a tail count,
+    # on a generator of its own; a row does not depend on its warp- and
+    # block-mates
+    g_id = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for depth in range(2, 11):
+        counts = (() if depth in (7, 8) else (QV_CHECK_C,)) + (
+            ideal_tail_circuits(depth),)
+        for c in counts:
+            perms = quantum_volume._sample_perms(g_id, c, depth)
+            gates = haar_rand_unitary(g_id, 4, batch=(c, depth, depth // 2),
+                                      dtype=torch.float32)
+            kern = check_ideal(pallas_traj, perms, gates, depth)
+        same = [torch.equal(pallas_traj.ideal_probs_kernel(
+            perms[:k], gates[:k], depth), kern[:k]) for k in (1, 3, c - 2)]
+        print(f"check ideal_probs: depth {depth} C={c}, the first 1, 3 and "
+              f"{c - 2} rows rerun alone bitwise equal: {same}")
+        check(all(same), f"ideal_probs depth {depth}: a row depends on its "
+              f"warp- or block-mates")
 
     # 7. the quantum-volume main path at full width
     def heavy_path(seed, noisy):
@@ -698,13 +768,32 @@ def main() -> int:
     perms, gates, uni = qv_inputs(quantum_volume, haar_rand_unitary, gen,
                                   QV_DEPTH, QV_CIRCUITS, QV_TRAJ)
     ideal_in = pallas_traj._ideal_kernel_inputs(perms, gates, QV_DEPTH)
-    ms_i, kern_i = cuda_ms(lambda: pallas_traj._ideal_launch(*ideal_in,
-                                                             QV_DEPTH))
-    ms_iw, _ = cuda_ms(lambda: pallas_traj.ideal_probs_kernel(perms, gates,
+    ms_i1, kern_i = cuda_ms(lambda: pallas_traj._ideal_launch(*ideal_in,
                                                               QV_DEPTH))
+    ms_iw1, _ = cuda_ms(lambda: pallas_traj.ideal_probs_kernel(perms, gates,
+                                                               QV_DEPTH))
     ms_ip, plain_i = cuda_ms(lambda: pallas_traj.ideal_probs_reference(
         perms, gates, QV_DEPTH))
     err_i = (kern_i - plain_i).abs().max().item()
+    # calls queued behind a device sleep: the kernel's own time, and the
+    # wrapper's on the card (and on the host), at depth 8 and at depth 4
+    g_q = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for depth, (p_q, u_q) in ((QV_DEPTH, (perms, gates)), (4, (
+            quantum_volume._sample_perms(g_q, QV_CIRCUITS, 4),
+            haar_rand_unitary(g_q, 4, batch=(QV_CIRCUITS, 4, 2),
+                              dtype=torch.float32)))):
+        q_in = pallas_traj._ideal_kernel_inputs(p_q, u_q, depth)
+        ms_q, _ = queued_ms(lambda: pallas_traj._ideal_launch(*q_in, depth))
+        ms_qw, host_qw = queued_ms(lambda: pallas_traj.ideal_probs_kernel(
+            p_q, u_q, depth))
+        print(f"timing ideal_probs queued: depth {depth} C={QV_CIRCUITS} "
+              f"kernel {ms_q:.4f} ms, wrapper {ms_qw:.4f} ms a call "
+              f"(wrapper - kernel {ms_qw - ms_q:.4f} ms; host {host_qw:.4f} "
+              f"ms a wrapper call), means of {QUEUED} queued calls, on {card}")
+        if depth == QV_DEPTH:
+            ms_i, ms_iw = ms_q, ms_qw
+    print(f"timing ideal_probs one call a sample: depth {QV_DEPTH} kernel "
+          f"{ms_i1:.4f} ms, wrapper {ms_iw1:.4f} ms")
     ideal_bound = bound_ms(
         QV_CIRCUITS * pallas_traj.traj_flops_per_circuit(
             QV_DEPTH, num_trajectories=1, noiseless=True),
@@ -744,12 +833,14 @@ def main() -> int:
     check(share_t > 0.97 and norm_t < 1e-5,
           f"traj_probs at full width: {share_t:.4f} agree, sums {norm_t:.3e}")
     del kern_t, plain_t, traj_in
-    traj_regs = traj_ptxas(kernels.build_log())
-    print("ptxas traj_probs_kernel<depth>: " + "; ".join(
-        f"{d}: {r} registers, {st}/{ld} B spill stores/loads, {sf} B stack"
-        for d, (r, st, ld, sf) in traj_regs.items()))
-    check(sorted(traj_regs) == list(range(2, 11)),
-          f"trajectory kernel instantiations {sorted(traj_regs)}")
+    qv_regs = {}
+    for kernel in ("traj_probs_kernel", "ideal_probs_kernel"):
+        qv_regs[kernel] = depth_ptxas(kernels.build_log(), kernel)
+        for d, (r, st, ld, sf) in qv_regs[kernel].items():
+            print(f"ptxas {kernel}<{d}>: {r} registers, {st}/{ld} B spill "
+                  f"stores/loads, {sf} B stack")
+        check(sorted(qv_regs[kernel]) == list(range(2, 11)),
+              f"{kernel} instantiations {sorted(qv_regs[kernel])}")
 
     # the Haar draw of one depth-8 call, against the library QR it replaces
     batch = (QV_CIRCUITS, QV_DEPTH, QV_DEPTH // 2)
@@ -799,6 +890,18 @@ def main() -> int:
           f"matrix-product calls and launches: {products}")
     check(products == 0, f"the trajectory wrapper ran {products} matrix "
           "products")
+    # the ideal wrapper alone: one launch, the ideal kernel's (the boundary
+    # maps are formed in the kernel)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pallas_traj.ideal_probs_kernel(perms, gates, QV_DEPTH)
+        torch.cuda.synchronize()
+    launched = [(e.key[:64], e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"profile ideal_probs wrapper: device kernels {launched}")
+    check(len(launched) == 1 and launched[0][1] == 1
+          and "ideal_probs_kernel" in launched[0][0],
+          f"the ideal wrapper launched {launched}")
 
     for name, kw in (("ideal", {}), ("noisy", dict(
             kraus=kraus, noisy_method="trajectory",
@@ -1078,10 +1181,15 @@ def main() -> int:
                     "forest_benchmarking_tpu/ops/pallas_traj.py:301",
                     qv_launches["traj_probs"], err_t, ms_t, ms_tp, traj_bound),
              agree_share=share_t, max_abs_err_all=err_t_all, wrapper_ms=ms_tw,
-             registers={d: r[0] for d, r in traj_regs.items()}),
-        record("ideal_probs", qv_src,
-               "forest_benchmarking_tpu/ops/pallas_traj.py:410",
-               qv_launches["ideal_probs"], err_i, ms_i, ms_ip, ideal_bound),
+             registers={d: r[0] for d, r in
+                        qv_regs["traj_probs_kernel"].items()}),
+        dict(record("ideal_probs", qv_src,
+                    "forest_benchmarking_tpu/ops/pallas_traj.py:410",
+                    qv_launches["ideal_probs"], err_i, ms_i, ms_ip,
+                    ideal_bound),
+             wrapper_ms=ms_iw,
+             registers={d: r[0] for d, r in
+                        qv_regs["ideal_probs_kernel"].items()}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -84,14 +84,28 @@
 // gather and the formation of the next layer's W and M' (~48 kFLOP a
 // block). The kernel is bound by instruction throughput. The ideal
 // function does 0.42 GFLOP and needs ~9 MB (permutations, gates, output) at
-// C = 1600: bound by operations at 0.0063 ms, and in practice by launch
-// latency.
+// C = 1600: bound by operations at 0.0063 ms; at ~12 circuits an SM the
+// kernel is held back by the latency of each warp's chain (the gather's
+// shared-memory round trip, the shuffles of the bit swaps) more than by issue.
 //
-// Ideal kernel: one warp per circuit, the state twice over in the warp's
-// slice of shared memory (a permutation is a gather from one copy into the
-// other); lane g applies each 4x4 to groups g, g + 32, ... of the slot's
-// four amplitudes in place. 8 circuits per block; the gates come through
-// the read-only cache.
+// Ideal kernel (`ideal_probs_kernel<D>`, one instantiation per depth D from
+// 2 to 10): the trajectory kernel's register layout without the noise, so
+// the state stays in registers and a slot is one 4x4 apply. It takes the
+// function's own inputs, the (C, d, d) permutations and the gates, and forms
+// the boundary maps itself: every h_l is a bit permutation of the amplitude
+// index, so the warp derives, per circuit and boundary, the D source bit
+// positions (four bits each, one 64-bit word) from perm_l and the inverse of
+// perm_{l-1}, and a lane's gather source is its lane part ORed with the
+// parts of its register bits; no map is read from memory. From depth 7 on a
+// warp holds one circuit (R = max(4, 2^D / 32) amplitudes a lane); below, a
+// circuit is a group of 2^(D-2) lanes with four amplitudes a lane, 32 /
+// 2^(D-2) circuits a warp, whose shuffles and normalization stay in the
+// group (their lane bits are below LB). Each warp copies its circuits'
+// gates and permutations into its slice of shared memory with coalesced
+// loads, and waits on no other warp (no __syncthreads). Lane groups past the
+// last circuit evolve a copy of it and write nothing; warps past it return
+// at once. A register row of the output is a run of 2^LB floats (32 from
+// depth 7 on).
 
 #include <cuda_runtime.h>
 
@@ -606,109 +620,268 @@ cudaError_t launch_traj(const int* hmaps, const float* gates,
 }
 
 // ---------------------------------------------------------------------------
-// Ideal kernel: the state in shared memory.
+// Ideal kernel: the state in registers, the boundary maps from the
+// permutations.
 // ---------------------------------------------------------------------------
 
-constexpr int IDEAL_WARPS = 8;       // circuits per block, one per warp
-constexpr int IDEAL_THREADS = 32 * IDEAL_WARPS;
+constexpr int IDEAL_WARPS = 4;  // warps a block; a warp waits on no other
+// circuits a warp holds, by depth: a lane group of 2^(D-2) lanes a circuit
+// (four amplitudes a lane) up to depth 7, one warp a circuit from there on
+constexpr int IDEAL_CIRCUITS_PER_WARP[QV_MAX_DEPTH + 1] = {0, 0, 32, 16, 8,
+                                                           4, 2, 1, 1, 1, 1};
 
-// Index of amplitude 0 of group g of a slot whose low bit is s; amplitude a
-// of the group sits at group_base + (a << s).
-__device__ __forceinline__ int group_base(int g, int s) {
-  return ((g >> s) << (s + 2)) | (g & ((1 << s) - 1));
-}
+// The layout of the ideal kernel at depth D: Traj<D>'s registers and lane
+// bits, on a lane group of G = Traj<D>::L lanes a circuit, and a warp's
+// slice of shared memory (bytes): its circuits' gates (a circuit's GATES
+// floats at a stride of GSTRIDE, which puts circuit g's entry e in bank
+// 4g + e), the scratch of the gathers (32 R floats each for the real and
+// imaginary parts), the boundary words (TS a circuit, an odd count, so that
+// the circuits' words of one layer fall in different banks), and the
+// permutations and their inverses (a byte an entry).
+template <int D>
+struct Ideal {
+  static constexpr int R = Traj<D>::R, G = Traj<D>::L, S = Traj<D>::S;
+  static constexpr int CPW = IDEAL_CIRCUITS_PER_WARP[D];
+  static_assert(CPW * G == 32, "lane groups fill the warp");
+  static constexpr int GATES = D * S * 32;
+  static constexpr int GSTRIDE = GATES + 4;
+  static constexpr int TS = (D + 1) | 1;
+  static constexpr int GATE_BYTES = CPW * GSTRIDE * 4;
+  static constexpr int SCRATCH_BYTES = 2 * 32 * R * 4;
+  static constexpr int WORD_BYTES = CPW * TS * 8;
+  static constexpr int PERM_BYTES = 2 * CPW * D * D;
+  static constexpr int WARP_BYTES =
+      (GATE_BYTES + SCRATCH_BYTES + WORD_BYTES + PERM_BYTES + 15) / 16 * 16;
+};
 
-// dst[x] = src[h[x]] for x < n. Ends with __syncwarp.
-__device__ __forceinline__ void gather(const float* src_r, const float* src_i,
-                                       float* dst_r, float* dst_i,
-                                       const int* __restrict__ h, int n,
-                                       int lane) {
-  for (int x = lane; x < n; x += 32) {
-    const int from = __ldg(h + x);
-    dst_r[x] = src_r[from];
-    dst_i[x] = src_i[from];
+// psi[x] <- psi[h[x]] for a boundary map h that is a bit permutation: bit k
+// of x comes from bit (word >> 4k) & 15 of h[x]. The lane group writes its
+// state at the indices of the layout a layer ends in and reads it back in the
+// start layout, register r of sub-lane `sub` at h((r << LB) | sub) =
+// h(r << LB) | h(sub): a lane part, and a part for each register bit.
+// Circuit g's amplitude y sits at swz(y) * CPW + g of the warp's scratch.
+template <int D>
+__device__ __forceinline__ void ideal_permute(float (&re)[Traj<D>::R],
+                                              float (&im)[Traj<D>::R],
+                                              float* sr, float* si,
+                                              unsigned long long word,
+                                              int lane_end, int sub, int g) {
+  constexpr int R = Traj<D>::R, RB = Traj<D>::RB, LB = Traj<D>::LB;
+  constexpr int CPW = Ideal<D>::CPW;
+  int lane_from = 0;
+#pragma unroll
+  for (int k = 0; k < LB; ++k)
+    lane_from |= ((sub >> k) & 1) << static_cast<int>((word >> (4 * k)) & 15);
+  int reg_bit[RB];
+#pragma unroll
+  for (int i = 0; i < RB; ++i)
+    reg_bit[i] = 1 << static_cast<int>((word >> (4 * (LB + i))) & 15);
+  int from[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    from[r] = lane_from;
+#pragma unroll
+    for (int i = 0; i < RB; ++i)
+      if ((r >> i) & 1) from[r] |= reg_bit[i];
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int x = swz(lane_end | end_reg_index<D>(r)) * CPW + g;
+    sr[x] = re[r];
+    si[x] = im[r];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int y = swz(from[r]) * CPW + g;
+    re[r] = sr[y];
+    im[r] = si[y];
   }
   __syncwarp();
 }
 
-// psi <- M psi on the slot with low bit s; M row-major (16 real, 16 imag).
-// Ends with __syncwarp.
-__device__ __forceinline__ void apply4(float* pr, float* pi,
-                                       const float (&mr)[16],
-                                       const float (&mi)[16], int n, int s,
-                                       int lane) {
-  for (int g = lane; g < (n >> 2); g += 32) {
-    const int base = group_base(g, s);
+// Slot J of a layer: U (row-major, interleaved, in shared memory at u + J
+// * 32) on the slot's groups, after the register/lane bit swap of the slot
+// plan. The apply is the trajectory kernel's, written out again: with one
+// helper for both, nvcc scheduled the trajectory kernel's instructions
+// differently from depth 4 on, and its source is kept as it was.
+template <int D, int J>
+__device__ __forceinline__ void ideal_slot(float (&re)[Traj<D>::R],
+                                           float (&im)[Traj<D>::R],
+                                           const float* u, int lane) {
+  constexpr int R = Traj<D>::R;
+  constexpr SlotPlan P = slot_plan<D>(J);
+  if constexpr (P.swap_reg >= 0)
+    swap_bits<R, P.swap_reg, P.swap_lane>(re, im, lane);
+  const float4* u4 = reinterpret_cast<const float4*>(u + J * 32);
+  float wr[16], wi[16];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float4 v = u4[q];
+    wr[2 * q] = v.x;
+    wi[2 * q] = v.y;
+    wr[2 * q + 1] = v.z;
+    wi[2 * q + 1] = v.w;
+  }
+#pragma unroll
+  for (int base = 0; base < R; ++base) {
+    if (base & ((1 << P.hi) | (1 << P.lo))) continue;
+    int idx[4];
     float xr[4], xi[4];
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      xr[b] = pr[base + (b << s)];
-      xi[b] = pi[base + (b << s)];
+    for (int a = 0; a < 4; ++a) {
+      idx[a] = base | ((a >> 1) << P.hi) | ((a & 1) << P.lo);
+      xr[a] = re[idx[a]];
+      xi[a] = im[idx[a]];
     }
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      float ar = 0.f, ai = 0.f;
+      float ar = wr[a * 4] * xr[0], ai = wr[a * 4] * xi[0];
+      ar = fmaf(-wi[a * 4], xi[0], ar);
+      ai = fmaf(wi[a * 4], xr[0], ai);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        ar += mr[a * 4 + b] * xr[b] - mi[a * 4 + b] * xi[b];
-        ai += mr[a * 4 + b] * xi[b] + mi[a * 4 + b] * xr[b];
+      for (int b = 1; b < 4; ++b) {
+        ar = fmaf(-wi[a * 4 + b], xi[b], fmaf(wr[a * 4 + b], xr[b], ar));
+        ai = fmaf(wi[a * 4 + b], xr[b], fmaf(wr[a * 4 + b], xi[b], ai));
       }
-      pr[base + (a << s)] = ar;
-      pi[base + (a << s)] = ai;
+      re[idx[a]] = ar;
+      im[idx[a]] = ai;
     }
   }
-  __syncwarp();
 }
 
-// Ideal kernel. hmaps (C, d+1, 2^d) int32; gates (C, d, d/2, 2, 16) f32
-// (real then imaginary part of each row-major 4x4); out (C, 2^d) f32.
-__global__ void __launch_bounds__(IDEAL_THREADS)
-    ideal_probs_kernel(const int* __restrict__ hmaps,
-                       const float* __restrict__ gates,
-                       float* __restrict__ out, int depth, int circuits) {
-  extern __shared__ float smem[];
-  const int n = 1 << depth, slots = depth >> 1;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x * IDEAL_WARPS + warp;
-  if (c >= circuits) return;  // whole warps only; no block barrier follows
-  float* cur_r = smem + warp * (4 * n + 4);
-  float* cur_i = cur_r + n;
-  float* oth_r = cur_r + 2 * n;
-  float* oth_i = cur_r + 3 * n;
-  const int* h = hmaps + static_cast<size_t>(c) * (depth + 1) * n;
+template <int D, int... J>
+__device__ __forceinline__ void ideal_slots(std::integer_sequence<int, J...>,
+                                            float (&re)[Traj<D>::R],
+                                            float (&im)[Traj<D>::R],
+                                            const float* u, int lane) {
+  (ideal_slot<D, J>(re, im, u, lane), ...);
+}
 
-  for (int x = lane; x < n; x += 32) {
-    cur_r[x] = x == 0 ? 1.f : 0.f;
-    cur_i[x] = 0.f;
+// Ideal kernel. perms (C, d, d) int64; gates (C, d, d/2, 4, 4) complex64
+// (interleaved floats); out (C, 2^d) f32. Warp w of block b holds circuits
+// (b * IDEAL_WARPS + w) * CPW onwards, one a lane group.
+template <int D>
+__global__ void __launch_bounds__(32 * IDEAL_WARPS)
+    ideal_probs_kernel(const long long* __restrict__ perms,
+                       const float* __restrict__ gates,
+                       float* __restrict__ out, int circuits) {
+  using I = Ideal<D>;
+  constexpr int N = Traj<D>::N, R = I::R, LB = Traj<D>::LB, S = I::S;
+  constexpr int G = I::G, CPW = I::CPW, TS = I::TS;
+  extern __shared__ __align__(16) unsigned char ideal_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = (blockIdx.x * IDEAL_WARPS + warp) * CPW;
+  if (c0 >= circuits) return;  // whole warps; no barrier follows
+  const int g = lane / G, sub = lane % G;
+  // lane groups past the last circuit evolve a copy of it and write nothing:
+  // every lane runs the same code, with no branch around its shuffles
+  const int c = c0 + g, last = circuits - 1;
+  unsigned char* slice = ideal_smem + warp * I::WARP_BYTES;
+  float* sg = reinterpret_cast<float*>(slice);
+  float* sr = reinterpret_cast<float*>(slice + I::GATE_BYTES);
+  float* si = sr + 32 * R;
+  auto* words = reinterpret_cast<unsigned long long*>(
+      slice + I::GATE_BYTES + I::SCRATCH_BYTES);
+  unsigned char* sp = reinterpret_cast<unsigned char*>(words + CPW * TS);
+  unsigned char* sv = sp + CPW * D * D;  // sv[row][perm[row][i]] = i
+
+  // the warp's circuits' gates and permutations, in coalesced runs
+  constexpr int Q = I::GATES / 4;
+  for (int e = lane; e < CPW * Q; e += 32) {
+    const int gg = e / Q, q = e - gg * Q;
+    const float4* src = reinterpret_cast<const float4*>(
+        gates + static_cast<size_t>(min(c0 + gg, last)) * I::GATES);
+    reinterpret_cast<float4*>(sg + gg * I::GSTRIDE)[q] = __ldg(src + q);
+  }
+  for (int e = lane; e < CPW * D * D; e += 32) {
+    const int gg = e / (D * D);
+    const long long p = __ldg(perms + static_cast<size_t>(min(c0 + gg, last))
+                                          * D * D + (e - gg * D * D));
+    const int v = static_cast<int>(min(max(p, 0LL), D - 1LL));
+    sp[e] = static_cast<unsigned char>(v);
+    sv[e - e % D + v] = static_cast<unsigned char>(e % D);
   }
   __syncwarp();
-  for (int l = 0; l < depth; ++l) {
-    gather(cur_r, cur_i, oth_r, oth_i, h + static_cast<size_t>(l) * n, n, lane);
-    float* tr = cur_r; cur_r = oth_r; oth_r = tr;
-    float* ti = cur_i; cur_i = oth_i; oth_i = ti;
-    for (int j = 0; j < slots; ++j) {
-      const float* g = gates + ((static_cast<size_t>(c) * depth + l) * slots + j) * 32;
-      float gr[16], gi[16];
+  // boundary l (1..D) of circuit gg: bit k = D-1-i of an index of layer l's
+  // basis, qubit i's, comes from bit D-1-inv_{l-1}[perm_l[i]] of layer
+  // l-1's (perm_D: the identity); four bits a position. Boundary 0 maps
+  // |0...0> to itself, so the kernel needs none.
+  for (int t = lane; t < CPW * D; t += 32) {
+    const int gg = t / D, l = 1 + t % D;
+    const unsigned char* pl = sp + (gg * D + l) * D;
+    const unsigned char* vp = sv + (gg * D + l - 1) * D;
+    unsigned long long word = 0;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        gr[i] = __ldg(g + i);
-        gi[i] = __ldg(g + 16 + i);
-      }
-      apply4(cur_r, cur_i, gr, gi, n, depth - 2 - j, lane);
+    for (int i = 0; i < D; ++i) {
+      const int a = l < D ? pl[i] : i;
+      const int from = D - 1 - min(static_cast<int>(vp[a]), D - 1);
+      word |= static_cast<unsigned long long>(from) << (4 * (D - 1 - i));
+    }
+    words[gg * TS + l] = word;
+  }
+  __syncwarp();
+
+  // |0...0> in the start layout: the first gather fixes it
+  float re[R], im[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    re[r] = r == 0 && sub == 0 ? 1.f : 0.f;
+    im[r] = 0.f;
+  }
+  // the sub-lane's part of an amplitude index in the layout a layer ends in
+  int lane_end = 0;
+#pragma unroll
+  for (int kb = 0; kb < LB; ++kb)
+    lane_end |= ((sub >> kb) & 1) << end_lane_bit<D>(kb);
+  const float* u = sg + g * I::GSTRIDE;
+  const unsigned long long* h = words + g * TS;
+  for (int l = 0; l < D; ++l) {
+    if (l > 0) ideal_permute<D>(re, im, sr, si, h[l], lane_end, sub, g);
+    ideal_slots<D>(std::make_integer_sequence<int, S>(), re, im,
+                   u + l * S * 32, lane);
+  }
+  ideal_permute<D>(re, im, sr, si, h[D], lane_end, sub, g);
+
+  // probabilities in the original basis, normalized over the lane group;
+  // register r of sub-lane `sub` holds (r << LB) | sub: from depth 7 on
+  // each register row is a run of 32 floats
+  float p[R], tot = 0.f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    p[r] = re[r] * re[r] + im[r] * im[r];
+    tot += p[r];
+  }
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1)
+    tot += __shfl_xor_sync(FULL, tot, off);
+  const float inv = 1.f / tot;
+  if (c < circuits) {
+    float* o = out + static_cast<size_t>(c) * N + sub;
+#pragma unroll
+    for (int r = 0; r < R; ++r) o[r << LB] = p[r] * inv;
+  }
+}
+
+template <int D>
+cudaError_t launch_ideal(const long long* perms, const float* gates,
+                         float* out, int circuits, cudaStream_t stream) {
+  constexpr int per_block = IDEAL_WARPS * Ideal<D>::CPW;
+  constexpr size_t smem =
+      static_cast<size_t>(IDEAL_WARPS) * Ideal<D>::WARP_BYTES;
+  if constexpr (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ideal_probs_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, so that no later check reports it
+      return err;
     }
   }
-  const int* hd = h + static_cast<size_t>(depth) * n;
-  float tot = 0.f;
-  for (int x = lane; x < n; x += 32) {
-    const int from = __ldg(hd + x);
-    tot += cur_r[from] * cur_r[from] + cur_i[from] * cur_i[from];
-  }
-  const float inv = 1.f / warp_sum(tot);
-  for (int x = lane; x < n; x += 32) {
-    const int from = __ldg(hd + x);
-    out[static_cast<size_t>(c) * n + x] =
-        (cur_r[from] * cur_r[from] + cur_i[from] * cur_i[from]) * inv;
-  }
+  ideal_probs_kernel<D><<<(circuits + per_block - 1) / per_block,
+                          32 * IDEAL_WARPS, smem, stream>>>(perms, gates, out,
+                                                            circuits);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -742,18 +915,24 @@ extern "C" int traj_probs_launch(const int* hmaps, const void* gates,
   return static_cast<int>(err);
 }
 
-extern "C" int ideal_probs_launch(const int* hmaps, const float* gates,
+extern "C" int ideal_probs_launch(const long long* perms, const void* gates,
                                   float* out, int circuits, int depth,
                                   void* stream) {
   if (circuits <= 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = static_cast<size_t>(IDEAL_WARPS) * (4 * (1 << depth) + 4) *
-                      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ideal_probs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ideal_probs_kernel<<<(circuits + IDEAL_WARPS - 1) / IDEAL_WARPS, IDEAL_THREADS,
-                       smem, static_cast<cudaStream_t>(stream)>>>(
-      hmaps, gates, out, depth, circuits);
-  return static_cast<int>(cudaGetLastError());
+  const float* g = static_cast<const float*>(gates);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (depth) {
+#define QV_IDEAL_CASE(D)                                                     \
+  case D:                                                                    \
+    err = launch_ideal<D>(perms, g, out, circuits, st);                      \
+    break;
+    QV_IDEAL_CASE(2) QV_IDEAL_CASE(3) QV_IDEAL_CASE(4) QV_IDEAL_CASE(5)
+    QV_IDEAL_CASE(6) QV_IDEAL_CASE(7) QV_IDEAL_CASE(8) QV_IDEAL_CASE(9)
+    QV_IDEAL_CASE(10)
+#undef QV_IDEAL_CASE
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

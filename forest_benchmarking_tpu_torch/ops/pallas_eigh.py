@@ -92,7 +92,8 @@ def cp_project_pallas(h: torch.Tensor, sweeps: int = 6,
         raise ValueError(f"unsupported device {h.device}")
     if h.dtype != torch.complex64:
         raise TypeError(f"the CUDA kernel takes complex64, got {h.dtype}")
-    h = h.contiguous()
+    # the data of a conjugate view holds the values before the conjugation
+    h = h.resolve_conj().contiguous()
     out = torch.empty_like(h)
     lib = kernels.load()
     with torch.cuda.device(h.device):

@@ -14,7 +14,10 @@ Kraus channel on the same pair, unravelled into trajectories: each slot
 draws one branch with its Born weight from a uniform variate.
 
 - :func:`_boundary_maps` composes the per-layer index maps, so a layer
-  starts with ONE gather psi[x] <- psi[h_l[x]].
+  starts with ONE gather psi[x] <- psi[h_l[x]]. Every h_l is a bit
+  permutation of the index; :func:`_boundary_source_bits` gives its source
+  bit positions, which the ideal kernel forms itself from the permutations
+  (the trajectory kernel still takes the maps).
 - :func:`_fused_channel_ops` forms, for the plain version, W_k = K_k U
   (the gate fused into the sampled Kraus operator) and
   M'_k = U^dag K_k^dag K_k U (the branch weights from the pre-gate state),
@@ -42,10 +45,20 @@ from forest_benchmarking_tpu_torch.sim.statevector import apply_gate_matrix
 
 __all__ = ["traj_probs_reference", "traj_probs_kernel", "traj_probs",
            "ideal_probs_reference", "ideal_probs_kernel", "ideal_probs",
-           "traj_flops_per_circuit", "MIN_DEPTH", "MAX_DEPTH", "MAX_KRAUS"]
+           "traj_flops_per_circuit", "ideal_circuits_per_warp", "MIN_DEPTH",
+           "MAX_DEPTH", "MAX_KRAUS", "IDEAL_WARPS"]
 
 MIN_DEPTH, MAX_DEPTH = 2, 10   # depths the CUDA kernels take (QV_*_DEPTH)
 MAX_KRAUS = 32                 # one warp lane per Kraus operator (QV_MAX_KRAUS)
+IDEAL_WARPS = 4                # warps a block of the ideal kernel (IDEAL_WARPS)
+
+
+def ideal_circuits_per_warp(depth: int) -> int:
+    """Circuits one warp of the ideal kernel holds at ``depth``
+    (``IDEAL_CIRCUITS_PER_WARP`` in ``csrc/qv_traj.cu``): a group of
+    2^(depth-2) lanes a circuit, four amplitudes a lane, below depth 7; one
+    warp a circuit from depth 7 on."""
+    return 32 >> (depth - 2) if depth < 7 else 1
 
 
 def _bit_permute_indices(perm: torch.Tensor, depth: int) -> torch.Tensor:
@@ -96,6 +109,27 @@ def _boundary_maps(perms: torch.Tensor, depth: int) -> torch.Tensor:
         hs.append(torch.gather(inv[..., l - 1, :], -1, fwd[..., l, :]))
     hs.append(inv[..., depth - 1, :])
     return torch.stack(hs, dim=-2)
+
+
+def _boundary_source_bits(perms: torch.Tensor, depth: int) -> torch.Tensor:
+    """The boundary maps of :func:`_boundary_maps` as bit permutations.
+
+    Entry [l, k] is the bit of the index in layer l-1's basis that bit k of
+    an index in layer l's basis comes from: h_l[x] = sum_k bit_k(x) <<
+    P[l, k]. Bit k = depth-1-i is qubit i's; fwd_l moves it to bit
+    depth-1-perm_l[i] and inv_{l-1} on to depth-1-inv(perm_{l-1})[perm_l[i]]
+    (perm_depth and inv(perm_-1) are the identity). The ideal kernel of
+    ``csrc/qv_traj.cu`` computes the same positions from the permutations,
+    per circuit and boundary, and reads no map from memory.
+
+    :param perms: (..., depth, depth) int qubit permutations.
+    :return: (..., depth + 1, depth) int64 source bit positions.
+    """
+    ident = torch.arange(depth, device=perms.device).expand(
+        *perms.shape[:-2], 1, depth)
+    into = torch.cat([perms.long(), ident], dim=-2)             # perm_l
+    back = torch.cat([ident, torch.argsort(perms, dim=-1)], dim=-2)
+    return (depth - 1 - torch.gather(back, -1, into)).flip(-1)
 
 
 def _fused_channel_ops(gates: torch.Tensor, kraus: torch.Tensor):
@@ -155,30 +189,38 @@ def ideal_probs_reference(perms: torch.Tensor, gates: torch.Tensor,
     return p / p.sum(-1, keepdim=True)
 
 
+def _laid_out(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernels read it: contiguous, with a conjugate view's
+    conjugation carried out (``data_ptr`` of a view points at the data before
+    it). A copy only for such inputs."""
+    return x.resolve_conj().contiguous()
+
+
 def _ideal_kernel_inputs(perms: torch.Tensor, gates: torch.Tensor,
                          depth: int):
-    """Check the ideal kernel's inputs and lay them out for it: (C, d+1, 2^d)
-    int32 index maps and (C, d, d//2, 2, 16) float32 gate planes."""
+    """Check the ideal kernel's inputs, the (C, d, d) int64 permutations and
+    (C, d, d//2, 4, 4) complex64 gates on one card, and pass them on as they
+    are (the kernel forms the boundary maps itself)."""
     _check_depth(depth)
     c, slots = perms.shape[0], depth // 2
     dev = gates.device
     _check_cuda("gates", gates, dev, torch.complex64, (c, depth, slots, 4, 4))
-    if perms.device != dev or perms.shape != (c, depth, depth):
-        raise ValueError(f"perms must be (C, depth, depth) on {dev}")
-    hmaps = _boundary_maps(perms, depth).to(torch.int32).contiguous()
-    planes = torch.stack([gates.real, gates.imag], dim=-3).reshape(
-        c, depth, slots, 2, 16).contiguous()
-    return hmaps, planes
+    _check_cuda("perms", perms, dev, torch.int64, (c, depth, depth))
+    perms, gates = _laid_out(perms), _laid_out(gates)
+    if gates.data_ptr() % 16:
+        raise ValueError("gates must be 16-byte aligned: the kernel reads "
+                         "them as float4")
+    return perms, gates
 
 
-def _ideal_launch(hmaps: torch.Tensor, planes: torch.Tensor,
+def _ideal_launch(perms: torch.Tensor, gates: torch.Tensor,
                   depth: int) -> torch.Tensor:
-    """One launch of the ideal kernel on laid-out inputs; counts it."""
-    c = hmaps.shape[0]
+    """One launch of the ideal kernel on checked inputs; counts it."""
+    c = perms.shape[0]
     out = torch.empty((c, 2 ** depth), dtype=torch.float32,
-                      device=hmaps.device)
-    _launch(kernels.load().ideal_probs_launch, hmaps.device,
-            hmaps.data_ptr(), planes.data_ptr(), out.data_ptr(), c, depth)
+                      device=perms.device)
+    _launch(kernels.load().ideal_probs_launch, perms.device,
+            perms.data_ptr(), gates.data_ptr(), out.data_ptr(), c, depth)
     ideal_probs.launches += 1
     return out
 
@@ -186,9 +228,9 @@ def _ideal_launch(hmaps: torch.Tensor, planes: torch.Tensor,
 def ideal_probs_kernel(perms: torch.Tensor, gates: torch.Tensor,
                        depth: int) -> torch.Tensor:
     """Launch the ideal kernel of ``csrc/qv_traj.cu`` on PyTorch's current
-    stream: (C, depth, depth) int permutations and (C, depth, depth//2, 4, 4)
-    complex64 gates on the card -> (C, 2^depth) float32. Adds one to
-    ``ideal_probs.launches`` per launch."""
+    stream: (C, depth, depth) int64 permutations and (C, depth, depth//2, 4,
+    4) complex64 gates on the card -> (C, 2^depth) float32, in one device
+    launch. Adds one to ``ideal_probs.launches`` per launch."""
     return _ideal_launch(*_ideal_kernel_inputs(perms, gates, depth), depth)
 
 
@@ -277,8 +319,7 @@ def _traj_kernel_inputs(perms: torch.Tensor, gates: torch.Tensor,
     if perms.device != dev or perms.shape != (c, depth, depth):
         raise ValueError(f"perms must be (C, depth, depth) on {dev}")
     hmaps = _boundary_maps(perms, depth).to(torch.int32).contiguous()
-    return (hmaps, gates.contiguous(), kraus.contiguous(),
-            uniforms.contiguous())
+    return hmaps, _laid_out(gates), _laid_out(kraus), uniforms.contiguous()
 
 
 def _traj_launch(hmaps: torch.Tensor, gates: torch.Tensor,

@@ -377,11 +377,18 @@ def qv_case(cuda, depth, circuits=16, n_traj=256, n_kraus=None):
     return perms, gates, kraus, uniforms
 
 
-@pytest.mark.parametrize("depth", [7, 8])
-def test_ideal_kernel_against_plain_version(cuda, depth):
-    """Within 2e-6 of the plain f32 version (the JAX package's bar for its
-    Pallas kernel) and 1e-5 of the plain f64 version; one launch."""
-    perms, gates, _, _ = qv_case(cuda, depth)
+def ideal_tail_circuits(depth):
+    """A circuit count that leaves the ideal kernel's last block part empty
+    and, where a warp holds several circuits, its last warp's lane groups
+    too: one block, one warp and half a warp more."""
+    per_warp = pallas_traj.ideal_circuits_per_warp(depth)
+    return pallas_traj.IDEAL_WARPS * per_warp + per_warp + max(per_warp // 2, 1)
+
+
+def hold_ideal_against_plain(perms, gates, depth):
+    """The ideal kernel's result, after holding it within 2e-6 of the plain
+    f32 version (the JAX package's bar for its Pallas kernel) and 1e-5 of
+    the plain f64 version; one launch."""
     before = pallas_traj.ideal_probs.launches
     kern = pallas_traj.ideal_probs(perms, gates, depth)
     torch.cuda.synchronize()
@@ -391,6 +398,88 @@ def test_ideal_kernel_against_plain_version(cuda, depth):
         torch.complex128), depth)
     assert (kern - plain32).abs().max().item() <= 2e-6
     assert (kern.double() - plain64).abs().max().item() <= 1e-5
+    return kern
+
+
+@pytest.mark.parametrize("depth", range(2, 11))
+def test_ideal_kernel_against_plain_version(cuda, depth):
+    """Every depth instantiation, the packed layouts (a circuit a group of
+    2^(d-2) lanes below depth 7) and the odd depths included, at C = 16."""
+    perms, gates, _, _ = qv_case(cuda, depth)
+    hold_ideal_against_plain(perms, gates, depth)
+
+
+@pytest.mark.parametrize("depth", [2, 4, 6, 8, 10])
+def test_ideal_kernel_at_a_tail_count(cuda, depth):
+    """The same bars at a circuit count that leaves the last block, and at
+    packed depths the last warp's lane groups, part empty."""
+    perms, gates, _, _ = qv_case(cuda, depth,
+                                 circuits=ideal_tail_circuits(depth))
+    hold_ideal_against_plain(perms, gates, depth)
+
+
+@pytest.mark.parametrize("depth", [4, 8])
+def test_ideal_rows_do_not_depend_on_block_mates(cuda, depth):
+    """A circuit's row is bitwise the same whichever circuits share its warp
+    and block: the first rows of a tail count rerun alone."""
+    c = ideal_tail_circuits(depth)
+    perms, gates, _, _ = qv_case(cuda, depth, circuits=c)
+    full = pallas_traj.ideal_probs(perms, gates, depth)
+    for k in (1, 3, c - 2):
+        assert torch.equal(pallas_traj.ideal_probs(perms[:k], gates[:k], depth),
+                           full[:k])
+
+
+def test_ideal_kernel_makes_one_device_launch(cuda):
+    """The wrapper passes the permutations and gates as they are: the call
+    is one device launch, the ideal kernel's."""
+    from torch.profiler import ProfilerActivity, profile
+    perms, gates, _, _ = qv_case(cuda, 8)
+    pallas_traj.ideal_probs_kernel(perms, gates, 8)      # build, warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pallas_traj.ideal_probs_kernel(perms, gates, 8)
+        torch.cuda.synchronize()
+    launched = [(e.key, e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(launched) == 1 and launched[0][1] == 1, launched
+    assert "ideal_probs_kernel" in launched[0][0]
+
+
+def test_ideal_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """int32 permutations, permutations off the card and gates that are not
+    16-byte aligned raise (no fallback to the plain version)."""
+    perms, gates, _, _ = qv_case(cuda, 4, circuits=2)
+    with pytest.raises(TypeError, match="int64"):
+        pallas_traj.ideal_probs(perms.int(), gates, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pallas_traj.ideal_probs(perms.cpu(), gates, 4)
+    shifted = torch.empty(gates.numel() + 1, dtype=gates.dtype,
+                          device=cuda)[1:].view(gates.shape)
+    shifted.copy_(gates)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pallas_traj.ideal_probs(perms, shifted, 4)
+
+
+def test_kernels_read_a_conjugate_view(cuda):
+    """A conjugate view's data pointer holds the unconjugated values: the
+    ideal, trajectory and CP wrappers carry the conjugation out first and
+    give what the conjugated tensor gives."""
+    perms, gates, kraus, uniforms = qv_case(cuda, 4, circuits=4, n_traj=32)
+    conj = gates.conj()
+    assert conj.is_conj()
+    assert torch.equal(pallas_traj.ideal_probs(perms, conj, 4),
+                       pallas_traj.ideal_probs(perms, conj.resolve_conj(), 4))
+    assert torch.equal(
+        pallas_traj.traj_probs(perms, conj, kraus.conj(), uniforms, 4),
+        pallas_traj.traj_probs(perms, conj.resolve_conj(),
+                               kraus.conj().resolve_conj(), uniforms, 4))
+    x = torch.randn((9, 16, 16), dtype=torch.complex64, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(5))
+    h = (x + x.transpose(1, 2).conj()) / 2
+    assert torch.equal(pallas_eigh.cp_project_pallas(h.conj()),
+                       pallas_eigh.cp_project_pallas(h.conj().resolve_conj()))
 
 
 @pytest.mark.parametrize("depth,n_traj,n_kraus", [
