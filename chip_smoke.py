@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke check of the PyTorch port's main paths: batched 2Q process
 tomography (BASELINE config 2), batched quantum volume (config 5), batched
-1Q process tomography, the per-problem process-MLE routes and the Jacobi CP
-projection.
+1Q process tomography, the per-problem process-MLE routes, the Jacobi CP
+projection, batched state tomography (config 1) and batched RB decay fits
+(config 3).
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
@@ -139,7 +140,44 @@ Phases, each of which must pass:
    B = 259 run;
 13. CUDA-event timings at B = 16384 of the CP kernel, its plain version and
    the library route ``proj_choi_to_completely_positive`` (``torch.linalg.eigh``),
-   with the bounds of both new kernels and their shares.
+   with the bounds of both new kernels and their shares;
+14. BASELINE config 1 (``bench_all.py:57``), plain PyTorch: B = 262144 Haar
+   one-qubit pure states (normalized complex Gaussian 2-vectors) and 2000
+   shots per Pauli drawn on the card; linear inversion (r = e) and
+   ``tomography.iterative_mle_state_estimate_batched(XYZ, e, 3 * shots,
+   tol=1e-7, maxiter=60, warm_start=True, representation="bloch")``, with
+   each problem's fidelity (1 + r . r_true)/2 against its true state, in
+   float32 and float64 on the card. Bars: finite (B,) fidelity arrays, the
+   float32 mean MLE fidelity within 1e-4 of the float64 one, mean
+   fidelities >= 0.999 (linear inversion) and >= 0.99 (MLE), and no launch
+   of a hand kernel; |r32 - r64| at the median, 99th percentile and
+   maximum. Then, per dtype, CUDA events (one warm-up, median of 3), the
+   host clock, solves/s, the Bloch steps run and
+   ``mle_bloch_flops_per_solve`` with the bound and its share, and a
+   ``torch.profiler`` pass (launches, busy time, synchronizations, top
+   kernels). Then the general route: 2Q, all 15 traceless Paulis,
+   B = 4096, warm start, tol = 1e-7, at most 300 steps, complex64 and
+   complex128, the host clock, iterations, launches, busy time and
+   synchronizations; the float32 mean fidelity within 1e-4 of float64's;
+15. BASELINE config 3 (``bench_all.py:131``), plain PyTorch: B = 65536
+   survival curves at depths 2, 6, ..., 30, 500 shots, decays uniform in
+   [0.9, 0.995], fitted by ``analysis.fitting.fit_model_batched(
+   _base_param_decay_p, ..., p0=[0.5, 0.95, 0.5], num_iters=50)`` in
+   float32 and float64 on the card. Bars: finite outputs of the right
+   shapes, float32 within 1e-4 of float64 in mean |decay error|, which is
+   at most 0.02, and no launch of a hand kernel. Per dtype, CUDA events,
+   host clock, fits/s, ``lm_flops_per_fit(8, 3, 50)`` with the bound and
+   its share, and a profiler pass; the final covariance's batched
+   ``pinv`` timed alone. The first 64 curves fitted in float64 to
+   convergence (300 steps) against scipy's ``curve_fit``: each within
+   1e-5 on every parameter, or, where the minimum lies in a flat valley,
+   at a cost no higher than scipy's, or a curve where scipy finds no
+   minimum (the counts of each are printed). Then
+   ``randomized_benchmarking.simulate_rb_survival_batched`` on the card
+   (float64) over 32 random one-qubit sequences of 2 to 16 unitaries that
+   compose to the identity: survival 1 without noise and
+   (1 + 0.9^L)/2 under depolarizing noise (1e-10), and
+   ``fit_rb_results`` of 5000-shot samples recovers the decay 0.9 (0.02).
 
 The second-to-last line is the per-kernel JSON record: ``launches`` from
 the main paths; ``ms``/``plain_ms``: the kernel alone and the plain version
@@ -207,6 +245,18 @@ CP_PER_BLOCK = 8            # CP_PER_BLOCK: one matrix a warp
 IDEAL_WARPS = 4             # IDEAL_WARPS of csrc/qv_traj.cu: warps a block
 QUEUED = 100                # calls a sample of queued_ms times
 SLEEP_CYCLES = 40_000_000   # the device sleep ahead of them (~20 ms)
+STATE_BATCH = 262144   # config 1 (bench_all.py:57): 1Q states per dispatch
+STATE_SHOTS = 2000     # shots per Pauli
+MLE_TOL, MLE_MAXITER = 1e-7, 60
+GENERAL_BATCH = 4096   # the 2Q general-route check of phase 14
+GENERAL_TOL, GENERAL_MAXITER = 1e-7, 300
+RB_BATCH = 65536       # config 3 (bench_all.py:131): decay curves
+RB_DEPTHS = 8          # depths 2, 6, ..., 30
+RB_SHOTS = 500
+RB_ITERS = 50
+RB_P0 = (0.5, 0.95, 0.5)
+SCIPY_BATCH = 64       # curves held against scipy's curve_fit
+SCIPY_ITERS = 300      # LM steps of that check: converged, not capped
 PEAK_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # the dim = 4 kernel with one problem per block, B = 16384, headline /
@@ -484,6 +534,332 @@ def traj_agreement(kern: torch.Tensor, plain: torch.Tensor):
     return (agree.float().mean().item(),
             col[agree].max().item() if bool(agree.any()) else float("nan"),
             col.max().item(), (kern.sum(1) - 1).abs().max().item())
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host milliseconds of ``fn()`` through a synchronize, over
+    ``reps`` runs after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def profiled(fn):
+    """(device kernel launches, device busy ms, stream/device
+    synchronizations, the top device kernels, fn's result) of one ``fn()``
+    under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    gpu = sorted((e for e in ev
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    return (sum(e.count for e in gpu),
+            sum(e.self_device_time_total for e in gpu) / 1e3,
+            sum(e.count for e in ev if "Synchronize" in e.key), gpu[:4], out)
+
+
+def port_launches():
+    """The launch counters of the port's hand-written kernels."""
+    from forest_benchmarking_tpu_torch.ops import (
+        lanes_apg, pallas_eigh, pallas_traj)
+    return (lanes_apg.apg_fused, pallas_eigh.cp_project_pallas,
+            pallas_traj.ideal_probs, pallas_traj.traj_probs)
+
+
+def phase_state_tomography(card: str, dev: torch.device) -> None:
+    """14. BASELINE config 1 at bench_all.py:57's size; see the module
+    docstring."""
+    t_phase = time.perf_counter()
+    from forest_benchmarking_tpu_torch import tomography
+    from forest_benchmarking_tpu_torch.utils import pauli_basis_matrices
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    z = torch.randn((STATE_BATCH, 2, 2), generator=g, device=dev)
+    psi = torch.complex(z[..., 0], z[..., 1])
+    psi = psi / torch.linalg.vector_norm(psi, dim=-1, keepdim=True)
+    ab = psi[:, 0].conj() * psi[:, 1]
+    r_true = torch.stack([2 * ab.real, 2 * ab.imag,
+                          psi[:, 0].abs() ** 2 - psi[:, 1].abs() ** 2], -1)
+    e = 2 * torch.binomial(torch.full_like(r_true, STATE_SHOTS),
+                           (1 + r_true) / 2, generator=g) / STATE_SHOTS - 1
+    obs = pauli_basis_matrices(1)[1:]
+
+    def estimate(e, r_true):
+        """Linear inversion (r = e for X, Y, Z) and the diluted MLE, with
+        each problem's fidelity against its true state."""
+        nm = torch.full(e.shape[:1], 3.0 * STATE_SHOTS, dtype=e.dtype,
+                        device=e.device)
+        r = tomography.iterative_mle_state_estimate_batched(
+            obs, e, nm, tol=MLE_TOL, maxiter=MLE_MAXITER, warm_start=True,
+            representation="bloch")
+        return ((1 + (e * r_true).sum(-1)) / 2,
+                (1 + (r * r_true).sum(-1)) / 2, r)
+
+    counters = port_launches()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    f_lin, f_mle, r32 = estimate(e, r_true)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    hand = [c.launches for c in counters]
+    f_lin64, f_mle64, r64 = estimate(e.double(), r_true.double())
+    dr = (r32.double() - r64).abs().amax(-1)
+    q = torch.quantile(dr, torch.tensor([0.5, 0.99], dtype=dr.dtype,
+                                        device=dev)).tolist()
+    means = [x.double().mean().item() for x in (f_lin, f_mle, f_lin64,
+                                                 f_mle64)]
+    print(f"main path state tomography: B={STATE_BATCH} shots={STATE_SHOTS} "
+          f"maxiter={MLE_MAXITER} tol={MLE_TOL} f32 host clock {wall:.3f} ms "
+          f"(first call); hand-kernel launches {hand} (the path runs none); "
+          f"mean fidelity linear inversion {means[0]:.6f} (f64 "
+          f"{means[2]:.6f}), MLE {means[1]:.6f} (f64 {means[3]:.6f}); "
+          f"|r32 - r64| median {q[0]:.3e} q99 {q[1]:.3e} max "
+          f"{dr.max().item():.3e}")
+    check(f_lin.shape == f_mle.shape == (STATE_BATCH,) and all(
+        bool(torch.isfinite(x).all()) for x in (f_lin, f_mle, r32)),
+          "state tomography: output not finite or of the wrong shape")
+    check(abs(means[1] - means[3]) <= 1e-4,
+          f"state tomography: f32 mean MLE fidelity {means[1]} against f64 "
+          f"{means[3]}")
+    check(means[0] >= 0.999 and means[1] >= 0.99,
+          f"state tomography: mean fidelities {means[0]} / {means[1]}")
+    check(sum(hand) == 0, f"state tomography launched hand kernels {hand}")
+    steps = tomography._mle_bloch_kernel(e, 0.1, MLE_TOL, MLE_MAXITER,
+                                         True)[1]
+    for name, ee, rt in (("f32", e, r_true),
+                         ("f64", e.double(), r_true.double())):
+        ms, _ = cuda_ms(lambda: estimate(ee, rt))
+        host = host_ms(lambda: estimate(ee, rt))
+        flops = (tomography.mle_bloch_flops_per_solve(steps)
+                 + 2 * 3 * 2) * STATE_BATCH
+        bound = bound_ms(flops, nbytes(ee, rt) + 2 * STATE_BATCH
+                         * ee.element_size())
+        launches, busy, syncs, top, _ = profiled(lambda: estimate(ee, rt))
+        print(f"timing state tomography {name}: B={STATE_BATCH} {steps} "
+              f"Bloch steps; CUDA events {ms:.3f} ms, host clock {host:.3f} "
+              f"ms, {STATE_BATCH / (ms / 1e3):.0f} solves/s; "
+              f"mle_bloch_flops_per_solve({steps}) = "
+              f"{tomography.mle_bloch_flops_per_solve(steps)}; bound "
+              f"{bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / ms:.3f}% "
+              f"of it; profiled: {launches} device launches, busy "
+              f"{busy:.3f} ms, {syncs} synchronizations on {card}")
+        for ev in top:
+            print(f"  device {ev.self_device_time_total / 1e3:9.3f} ms "
+                  f"x{ev.count:<6d} {ev.key[:64]}")
+
+    # the general route: 2Q, all 15 traceless Paulis, warm start
+    z = torch.randn((GENERAL_BATCH, 4, 2), generator=g, device=dev,
+                    dtype=torch.float64)
+    psi = torch.complex(z[..., 0], z[..., 1])
+    psi = psi / torch.linalg.vector_norm(psi, dim=-1, keepdim=True)
+    obs2 = torch.tensor(pauli_basis_matrices(2)[1:], device=dev)
+    exact = torch.einsum("sij,bj,bi->bs", obs2, psi, psi.conj()).real
+    e2 = 2 * torch.binomial(torch.full_like(exact, STATE_SHOTS),
+                            (1 + exact) / 2, generator=g) / STATE_SHOTS - 1
+    nm2 = torch.full((GENERAL_BATCH,), 15.0 * STATE_SHOTS, device=dev,
+                     dtype=torch.float64)
+    fid = {}
+    for cdtype, rdtype in ((torch.complex64, torch.float32),
+                           (torch.complex128, torch.float64)):
+        ob, ee = obs2.to(cdtype), e2.to(rdtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rho = tomography.iterative_mle_state_estimate_batched(
+            ob, ee, nm2, tol=GENERAL_TOL, maxiter=GENERAL_MAXITER,
+            warm_start=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fid[cdtype] = torch.einsum("bi,bij,bj->b", psi.conj().to(cdtype), rho,
+                                   psi.to(cdtype)).real.double()
+        _, its = tomography._mle_general_batched(
+            ob, ee, nm2, 0.1, 0.0, 0.0, GENERAL_TOL, GENERAL_MAXITER, True)
+        print(f"general route {cdtype}: 2Q B={GENERAL_BATCH} warm start "
+              f"tol={GENERAL_TOL} maxiter={GENERAL_MAXITER}: host clock "
+              f"{wall:.3f} s; iterations max {its.max().item()} mean "
+              f"{its.float().mean().item():.1f}; mean fidelity "
+              f"{fid[cdtype].mean().item():.6f}")
+        check(bool(torch.isfinite(rho).all()), "general route: not finite")
+    # one profiled call (complex64): a profile of ~50 k launches takes
+    # tens of seconds to gather
+    launches, busy, syncs, top, _ = profiled(
+        lambda: tomography.iterative_mle_state_estimate_batched(
+            obs2.to(torch.complex64), e2.float(), nm2, tol=GENERAL_TOL,
+            maxiter=GENERAL_MAXITER, warm_start=True))
+    print(f"profile general route complex64: {launches} device launches, "
+          f"busy {busy:.3f} ms, {syncs} synchronizations")
+    for ev in top:
+        print(f"  device {ev.self_device_time_total / 1e3:9.3f} ms "
+              f"x{ev.count:<6d} {ev.key[:64]}")
+    gap = abs(fid[torch.complex64].mean() - fid[torch.complex128].mean())
+    check(gap.item() <= 1e-4, f"general route: f32 mean fidelity "
+          f"{gap.item():.3e} from f64")
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_rb_fits(card: str, dev: torch.device) -> None:
+    """15. BASELINE config 3 at bench_all.py:131's size; see the module
+    docstring."""
+    t_phase = time.perf_counter()
+    from scipy.optimize import curve_fit
+    from forest_benchmarking_tpu_torch import randomized_benchmarking as rb
+    from forest_benchmarking_tpu_torch.analysis import fitting
+    from forest_benchmarking_tpu_torch.ops.calculational import pinv
+    from forest_benchmarking_tpu_torch.ops.random_operators import (
+        haar_rand_unitary)
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    depths = torch.arange(2, 2 + 4 * RB_DEPTHS, 4, dtype=torch.float64,
+                          device=dev)
+    decays = 0.9 + 0.095 * torch.rand(RB_BATCH, generator=g, device=dev,
+                                      dtype=torch.float64)
+    surv = 0.5 + 0.5 * decays[:, None] ** depths
+    y = torch.binomial(torch.full_like(surv, RB_SHOTS), surv,
+                       generator=g) / RB_SHOTS
+
+    def fit(dtype, iters=RB_ITERS, rows=slice(None)):
+        return fitting.fit_model_batched(
+            fitting._base_param_decay_p, depths.to(dtype), y[rows].to(dtype),
+            None, RB_P0, num_iters=iters)
+
+    counters = port_launches()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    p32, chi32, cov32 = fit(torch.float32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hand = [c.launches for c in counters]
+    p64, _, _ = fit(torch.float64)
+    err32 = (p32[:, 1].double() - decays).abs()
+    err64 = (p64[:, 1] - decays).abs()
+    print(f"main path RB fits: B={RB_BATCH} depths {depths.tolist()} "
+          f"shots={RB_SHOTS} num_iters={RB_ITERS} f32 host clock {wall:.3f} "
+          f"s (first call); hand-kernel launches {hand} (the path runs "
+          f"none); mean |decay error| f32 {err32.mean().item():.6f} f64 "
+          f"{err64.mean().item():.6f} (max {err32.max().item():.5f} / "
+          f"{err64.max().item():.5f})")
+    check(all(bool(torch.isfinite(x).all()) for x in (p32, chi32, cov32))
+          and p32.shape == (RB_BATCH, 3) and cov32.shape == (RB_BATCH, 3, 3),
+          "RB fits: output not finite or of the wrong shape")
+    check(abs(err32.mean() - err64.mean()).item() <= 1e-4,
+          "RB fits: f32 mean |decay error| off the f64 one")
+    check(err32.mean().item() <= 0.02, f"RB fits: mean |decay error| "
+          f"{err32.mean().item()}")
+    check(sum(hand) == 0, f"RB fits launched hand kernels {hand}")
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        ms, _ = cuda_ms(lambda: fit(dtype))
+        host = host_ms(lambda: fit(dtype), reps=1)
+        flops = fitting.lm_flops_per_fit(RB_DEPTHS, 3, RB_ITERS) * RB_BATCH
+        size = torch.empty((), dtype=dtype).element_size()
+        bound = bound_ms(flops, size * (RB_DEPTHS + 3 + RB_BATCH
+                                        * (RB_DEPTHS + 3 + 1 + 9)))
+        launches, busy, syncs, top, _ = profiled(lambda: fit(dtype))
+        print(f"timing RB fits {name}: B={RB_BATCH} CUDA events {ms:.3f} "
+              f"ms, host clock {host:.3f} ms, {RB_BATCH / (ms / 1e3):.0f} "
+              f"fits/s; lm_flops_per_fit({RB_DEPTHS}, 3, {RB_ITERS}) = "
+              f"{fitting.lm_flops_per_fit(RB_DEPTHS, 3, RB_ITERS)}; bound "
+              f"{bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / ms:.3f}% "
+              f"of it; profiled: {launches} device launches, busy "
+              f"{busy:.3f} ms, {syncs} synchronizations on {card}")
+        for ev in top:
+            print(f"  device {ev.self_device_time_total / 1e3:9.3f} ms "
+                  f"x{ev.count:<6d} {ev.key[:64]}")
+    # the final covariance's pseudo-inverse alone, on J^T J of that size
+    jtj = torch.linalg.inv(cov32.double()).float().contiguous()
+    ms_pinv, _ = cuda_ms(lambda: pinv(jtj))
+    launches, busy, _, top, _ = profiled(lambda: pinv(jtj))
+    ms_svd, _ = cuda_ms(lambda: torch.linalg.svd(jtj))
+    print(f"timing pinv covariance f32 (B={RB_BATCH}, 3x3): CUDA events "
+          f"{ms_pinv:.3f} ms (torch.linalg.svd alone {ms_svd:.3f} ms); "
+          f"{launches} device launches, busy {busy:.3f} ms"
+          + "".join(f"; {ev.key[:40]} {ev.self_device_time_total / 1e3:.3f} "
+                    f"ms x{ev.count}" for ev in top))
+
+    # the first curves in float64 against scipy's curve_fit
+    p_sc, _, _ = fit(torch.float64, iters=SCIPY_ITERS,
+                     rows=slice(0, SCIPY_BATCH))
+    x_np, y_np = depths.cpu().numpy(), y[:SCIPY_BATCH].cpu().numpy()
+    ours = p_sc.cpu().numpy()
+
+    def model(x, a, d, b):
+        return b + a * d ** x
+
+    close = lower = no_minimum = 0
+    worst = 0.0
+    for i in range(SCIPY_BATCH):
+        try:
+            popt, _ = curve_fit(model, x_np, y_np[i], p0=list(RB_P0))
+        except RuntimeError:
+            # scipy finds no minimum (a decay running to 1 with amplitude
+            # and baseline growing without bound)
+            no_minimum += 1
+            check(bool(np.isfinite(ours[i]).all()), f"scipy check: curve {i}")
+            continue
+        dev_i = np.abs(popt - ours[i]).max()
+        if dev_i <= 1e-5:
+            close += 1
+            worst = max(worst, dev_i)
+            continue
+        cost_ours = ((model(x_np, *ours[i]) - y_np[i]) ** 2).sum()
+        cost_sc = ((model(x_np, *popt) - y_np[i]) ** 2).sum()
+        check(cost_ours <= cost_sc * (1 + 1e-9),
+              f"scipy check: curve {i} {dev_i:.3e} from scipy at cost "
+              f"{cost_ours:.12e} against scipy's {cost_sc:.12e}")
+        lower += 1
+        print(f"  scipy check: curve {i}: {dev_i:.3e} from scipy's "
+              f"{popt.round(5).tolist()}, ours {ours[i].round(5).tolist()} "
+              f"at cost {cost_ours:.12e} <= scipy's {cost_sc:.12e}")
+    print(f"scipy check f64 (num_iters={SCIPY_ITERS}): {close} of "
+          f"{SCIPY_BATCH} curves "
+          f"within 1e-5 of curve_fit on every parameter (largest "
+          f"{worst:.3e}); {lower} in a flat valley at a cost no higher than "
+          f"scipy's; {no_minimum} where scipy finds no minimum")
+
+    # the RB simulator: random 1Q sequences that compose to the identity
+    rb_depths = [d for d in (2, 6, 10, 16) for _ in range(8)]
+    us = haar_rand_unitary(torch.Generator(device=dev).manual_seed(SEED + 16),
+                           2, batch=(len(rb_depths), max(rb_depths))
+                           ).cpu().numpy()
+    ptms = np.tile(np.eye(4), (len(rb_depths), max(rb_depths), 1, 1))
+    for i, depth in enumerate(rb_depths):
+        total = np.eye(2)
+        for j in range(depth - 1):
+            ptms[i, j] = rb.unitary_to_ptm_np(us[i, j])
+            total = us[i, j] @ total
+        ptms[i, depth - 1] = rb.unitary_to_ptm_np(total.conj().T)
+    noise = np.diag([1.0, 0.9, 0.9, 0.9])
+    ideal = rb.simulate_rb_survival_batched(ptms, lengths=rb_depths)
+    exact = rb.simulate_rb_survival_batched(ptms, noise, lengths=rb_depths)
+    want = 0.5 + 0.5 * 0.9 ** torch.tensor(rb_depths, dtype=torch.float64,
+                                           device=exact.device)
+    sampled = rb.simulate_rb_survival_batched(
+        ptms, noise, torch.Generator(device=dev).manual_seed(SEED + 17),
+        num_shots=5000, lengths=rb_depths)
+    decay = rb.fit_rb_results(rb_depths, [[2 * s - 1] for s in
+                                          sampled.tolist()],
+                              [[0.01]] * len(rb_depths)).params["decay"].value
+    dev_ideal = (ideal - 1).abs().max().item()
+    dev_exact = (exact - want).abs().max().item()
+    print(f"RB simulator on {ideal.device}: noiseless max |survival - 1| "
+          f"{dev_ideal:.3e}; depolarizing max |survival - (1 + 0.9^L)/2| "
+          f"{dev_exact:.3e}; 5000 shots, fit_rb_results decay {decay:.5f} "
+          f"(0.9)")
+    check(ideal.device.type == "cuda", "RB simulator: not on the card")
+    check(dev_ideal <= 1e-10 and dev_exact <= 1e-10,
+          f"RB simulator: {dev_ideal:.3e} / {dev_exact:.3e}")
+    check(abs(decay - 0.9) < 0.02, f"RB simulator: decay {decay}")
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1148,6 +1524,11 @@ def main() -> int:
                               ("cp_project", ms_cp, cp_bound)):
         print(f"bound {name}: {bound[0]:.3f} ms ({bound[1]}), kernel at "
               f"{100 * bound[0] / ms_k:.1f}% of it")
+
+    # 14. BASELINE config 1, and 15. config 3 (plain torch: these paths
+    # run no TPU kernel)
+    phase_state_tomography(card, dev)
+    phase_rb_fits(card, dev)
 
     def record(name, source, replaces, launch_count, err, ms_k, ms_p, bound,
                library_ms=None):

@@ -26,10 +26,23 @@ the fused solver at dim=2 as well as dim=4 on the card), and the
 standalone Jacobi CP projection ``ops.pallas_eigh.cp_project_pallas``, a
 hand-written CUDA kernel on the card.
 
+Slice 9 covers BASELINE configs 1 and 3, plain PyTorch (the JAX package
+runs both under XLA, with no Pallas kernel): batched state tomography,
+``tomography.iterative_mle_state_estimate_batched`` (the one-qubit Bloch
+update and the general diluted-MLE loop, with
+``ops.project_state_matrix.project_state_matrix_to_physical`` for the warm
+start), the batched Levenberg-Marquardt fitter ``analysis.fitting``, and
+the numeric halves of ``randomized_benchmarking`` (survival statistics,
+RB / unitarity / IRB analysis, the PTM-composition simulator) and
+``qubit_spectroscopy`` (the T1, T2, Rabi and CZ-Ramsey fits). Functions
+that take tensors run where their tensors lie; the entry points that take
+numpy arrays or lists run on the card unless called with
+``device="cpu"``.
+
 The package imports neither JAX nor the JAX package: it keeps its own
 copies of the host helpers it needs. The quantum-volume entry points run on
-the card unless the caller passes ``device="cpu"``; the tomography entry
-point runs where its input tensors lie.
+the card unless the caller passes ``device="cpu"``; the process-tomography
+entry point runs where its input tensors lie.
 
 Importing the package builds nothing and imports no kernel toolchain: the
 CUDA library is compiled on first use by :mod:`.kernels`.

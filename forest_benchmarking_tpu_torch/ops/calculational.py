@@ -1,5 +1,5 @@
 """Batched calculational helpers: conjugate transpose, hermitian part, kron,
-partial trace.
+partial trace, and the pseudo-inverse with the JAX package's cutoff.
 
 Port of ``forest_benchmarking_tpu/ops/calculational.py`` (subset). Every
 function takes arbitrary leading batch dimensions.
@@ -10,7 +10,7 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["dag", "hermitianize", "kron", "partial_trace"]
+__all__ = ["dag", "hermitianize", "kron", "partial_trace", "pinv"]
 
 
 def dag(a: torch.Tensor) -> torch.Tensor:
@@ -21,6 +21,14 @@ def dag(a: torch.Tensor) -> torch.Tensor:
 def hermitianize(a: torch.Tensor) -> torch.Tensor:
     """(A + A^dagger) / 2 over the trailing two axes."""
     return (a + dag(a)) / 2
+
+
+def pinv(a: torch.Tensor) -> torch.Tensor:
+    """Pseudo-inverse over the trailing two axes with ``jnp.linalg.pinv``'s
+    default cutoff: singular values below 10 max(m, n) eps of the largest
+    are dropped (``torch.linalg.pinv``'s default is max(m, n) eps)."""
+    rtol = 10 * max(a.shape[-2:]) * torch.finfo(a.dtype).eps
+    return torch.linalg.pinv(a, rtol=rtol)
 
 
 def kron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

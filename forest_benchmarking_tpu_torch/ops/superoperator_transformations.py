@@ -1,10 +1,15 @@
-"""Column-stacking vectorization (port of the JAX module's ``vec``/``unvec``)."""
+"""Column-stacking vectorization and the host-side Pauli-to-computational
+basis matrix (port of the JAX module's ``vec``, ``unvec`` and ``_p2c_np``)."""
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+from forest_benchmarking_tpu_torch.utils import pauli_basis_matrices
 
 __all__ = ["vec", "unvec"]
 
@@ -28,3 +33,12 @@ def unvec(vector: torch.Tensor,
         shape = (dim, dim)
     n, m = shape
     return vector.reshape(*vector.shape[:-1], m, n).transpose(-1, -2)
+
+
+@functools.lru_cache(maxsize=None)
+def _p2c_np(dim: int) -> np.ndarray:
+    """Host-side cached Pauli -> computational basis transform (dim**2 x
+    dim**2): column k is vec(P_k), column stacking."""
+    n_qubits = int(np.log2(dim))
+    paulis = pauli_basis_matrices(n_qubits)
+    return np.swapaxes(paulis, -1, -2).reshape(dim * dim, dim * dim).T.copy()

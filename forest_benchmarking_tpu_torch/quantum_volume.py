@@ -35,6 +35,7 @@ from forest_benchmarking_tpu_torch.ops.pallas_traj import _bit_permute_indices
 from forest_benchmarking_tpu_torch.ops.lanes_apg import full_f32_matmul
 from forest_benchmarking_tpu_torch.ops.random_operators import (
     haar_rand_unitary)
+from forest_benchmarking_tpu_torch.utils import entry_device
 
 __all__ = ["sample_heavy_outputs_batched", "measure_quantum_volume_batched",
            "calculate_prob_est_and_err",
@@ -180,16 +181,6 @@ def _heavy_outputs(probs: torch.Tensor) -> torch.Tensor:
     return probs > med[..., None]
 
 
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the quantum-volume entry points "
-                           "run on the card unless called with device='cpu'")
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def _generator(generator: Optional[torch.Generator],
                dev: torch.device) -> torch.Generator:
     if generator is None:
@@ -233,7 +224,7 @@ def sample_heavy_outputs_batched(generator: Optional[torch.Generator],
     On the card the kernels compute in float32 at every ``dtype``
     (:func:`_use_kernels`).
     """
-    dev = _device(device)
+    dev = entry_device(device)
     gen = _generator(generator, dev)
     cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
     if _use_kernels(depth, dev):
@@ -306,7 +297,7 @@ def measure_quantum_volume_batched(generator: Optional[torch.Generator] = None,
     {depth: (heavy-output probability, its 2-sigma lower bound)}, stopping
     after the first depth whose bound is at or below
     ``achievable_threshold`` when ``stop_when_fail``."""
-    dev = _device(device)
+    dev = entry_device(device)
     gen = _generator(generator, dev)
     results = {}
     for depth in range(2, max_depth + 1):

@@ -1,29 +1,40 @@
-"""Process tomography: the batched PGDB/APG maximum-likelihood routes.
+"""State and process tomography at the array level: batched diluted MLE of
+states, and the batched PGDB/APG maximum-likelihood routes of processes.
 
-Port of the process path of ``forest_benchmarking_tpu/tomography.py``:
+Port of the array-level half of ``forest_benchmarking_tpu/tomography.py``:
 
-- the host-side helpers that build the PGDB A-matrix rows from the Pauli
-  process-tomography settings (pure numpy; the six +-X/Y/Z eigenstate
-  densities come from the same rotation matrices, applied in the same order,
-  as ``observable_estimation._one_q_state_prep`` in the JAX package);
-- the per-problem solvers :func:`_pgdb_kernel` (projected gradient with
-  backtracking) and :func:`_apg_kernel` (FISTA with function restart), each
-  projecting with
+- state tomography: :func:`iterative_mle_state_estimate_batched` with its
+  two routes, the general diluted-MLE loop :func:`_mle_general_batched`
+  (with the MaxEnt and hedged variants and the projected linear-inversion
+  warm start) and the closed-form one-qubit update on Bloch vectors
+  :func:`_mle_bloch_kernel`; and ``bloch_to_density``,
+  ``mle_bloch_flops_per_solve`` and ``_is_xyz_pauli_stack``;
+- process tomography: the host-side helpers that build the PGDB A-matrix
+  rows from the Pauli process-tomography settings (pure numpy; the six
+  +-X/Y/Z eigenstate densities come from the same rotation matrices,
+  applied in the same order, as ``observable_estimation._one_q_state_prep``
+  in the JAX package); the per-problem solvers :func:`_pgdb_kernel`
+  (projected gradient with backtracking) and :func:`_apg_kernel` (FISTA with
+  function restart), each projecting with
   :func:`~forest_benchmarking_tpu_torch.ops.project_superoperators.proj_choi_to_physical`;
-- :func:`pgdb_process_estimate_batched`, which routes to them or to the
+  and :func:`pgdb_process_estimate_batched`, which routes to them or to the
   fused solver :func:`~forest_benchmarking_tpu_torch.ops.lanes_apg.apg_fused`
   (``method="apg", cp_method="pallas"``).
 
-JAX writes each solver for one problem and batches it with ``vmap`` over
-``lax.while_loop``. Here each solver is written batch-first: every loop
-runs while any problem is still going and computes only those, so each
+JAX writes each iterative solver for one problem and batches it with
+``vmap`` over ``lax.while_loop``. Here each is written batch-first: every
+loop runs while any problem is still going and computes only those, so each
 problem stops exactly where its own JAX loop stops. Each loop iteration
 reads the number of problems still going back to the host (one
-synchronization per iteration on the card).
+synchronization per iteration on the card). The Bloch update instead runs
+the whole batch and freezes the problems that have converged, reading
+whether any is still going once per chunk of eight iterations.
 
-The results-level API (``pgdb_process_estimate``,
+The results-level API (``linear_inv_state_estimate``,
+``iterative_mle_state_estimate``, ``state_log_likelihood``,
+``estimate_variance``, ``pgdb_process_estimate``,
 ``linear_inv_process_estimate``, ``_extract_from_results``) needs the
-experiment data model and waits for ROADMAP.md queue 1, item 13.
+experiment data model and waits for ROADMAP.md queue 1, item 13a.
 
 Conventions: column-stacking vec; the first qubit is the left-most tensor
 factor.
@@ -32,22 +43,27 @@ from __future__ import annotations
 
 import functools
 import itertools
+import math
 from math import pi
 from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from forest_benchmarking_tpu_torch.ops.calculational import dag
+from forest_benchmarking_tpu_torch.ops.calculational import dag, pinv
 from forest_benchmarking_tpu_torch.ops.lanes_apg import full_f32_matmul
+from forest_benchmarking_tpu_torch.ops.project_state_matrix import (
+    project_state_matrix_to_physical)
 from forest_benchmarking_tpu_torch.ops.project_superoperators import (
     proj_choi_to_physical)
 from forest_benchmarking_tpu_torch.ops.superoperator_transformations import (
     unvec, vec)
-from forest_benchmarking_tpu_torch.utils import all_traceless_pauli_strings
+from forest_benchmarking_tpu_torch.utils import (
+    all_traceless_pauli_strings, entry_device, pauli_basis_matrices)
 
-__all__ = ["state_to_density", "pgdb_a_row_pair",
-           "pgdb_process_estimate_batched"]
+__all__ = ["state_to_density", "iterative_mle_state_estimate_batched",
+           "bloch_to_density", "mle_bloch_flops_per_solve",
+           "pgdb_a_row_pair", "pgdb_process_estimate_batched"]
 
 # The Pauli-eigenstate inputs of process tomography, as (Pauli, index) with
 # index 0 the +1 eigenstate: plusX, minusX, plusY, minusY, plusZ, minusZ.
@@ -97,6 +113,253 @@ def state_to_density(states: Sequence[Tuple[str, int]]) -> np.ndarray:
     for label, index in states:
         rho = np.kron(rho, _oneq_state_density(label, index))
     return rho
+
+
+def _logm_psd(rho: torch.Tensor) -> torch.Tensor:
+    """Matrix log of a Hermitian PSD matrix via eigh (tiny eigenvalues
+    clamped)."""
+    w, v = torch.linalg.eigh(rho)
+    w = w.clamp(min=torch.finfo(w.dtype).tiny)
+    return (v * torch.log(w)[..., None, :].to(v.dtype)) @ dag(v)
+
+
+def _trace(m: torch.Tensor) -> torch.Tensor:
+    return torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+
+
+def _mle_general_batched(obs_mats: torch.Tensor, expectations: torch.Tensor,
+                         num_meas: torch.Tensor, epsilon: float,
+                         entropy_penalty: float, beta: float, tol: float,
+                         maxiter: int, warm_start: bool
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Diluted iterative MLE [DIMLE1], batch-first: (S, d, d) shared
+    observables, (B, S) expectations, (B,) shot totals (read only by the
+    hedged variant) -> ((B, d, d) estimates, (B,) iterations).
+
+    The JAX package's per-problem ``_mle_kernel`` update: R(rho) from the
+    plus/minus projector decomposition of each Pauli, T = R - I with the
+    optional MaxEnt [DIMLE2] (``entropy_penalty``) or hedging [HMLE]
+    (``beta``) terms, rho <- U rho U / tr with U = I + epsilon T, until the
+    Frobenius change falls below ``tol`` or after ``maxiter`` steps, each
+    problem on its own. ``warm_start`` starts from the physical projection
+    of the linear-inversion estimate (I + sum_s e_s P_s)/d instead of I/d,
+    valid when ``obs_mats`` is the full traceless Pauli basis. The dtype is
+    that of ``obs_mats``; the products run in full float32 on the card.
+    """
+    s, d = obs_mats.shape[0], obs_mats.shape[-1]
+    cdtype = obs_mats.dtype
+    feps = torch.tensor(torch.finfo(cdtype).eps, dtype=cdtype,
+                        device=obs_mats.device)
+    eye = torch.eye(d, dtype=cdtype, device=obs_mats.device)
+    e = expectations.to(cdtype)
+    e_plus, e_minus = 1 + e, 1 - e
+    b = e.shape[0]
+    # tr(P_s rho) = sum_ij rho_ij (P_s)_ji: the predictions are a product
+    # of the row-major flattenings of rho and of each P_s^T
+    obs_flat = obs_mats.reshape(s, d * d)
+    obs_pred = obs_mats.transpose(-1, -2).reshape(s, d * d).T.contiguous()
+
+    def compute_r(rho, e_plus, e_minus):
+        pred = rho.reshape(-1, d * d) @ obs_pred
+        # the predicted-outcome denominators are clamped to eps, not tiny: a
+        # projected (rank-deficient) rho can predict 0 exactly where the
+        # measured frequency is positive
+        dp, dm = 1 + pred, 1 - pred
+        dp = torch.where(dp.abs() < feps.real, feps, dp)
+        dm = torch.where(dm.abs() < feps.real, feps, dm)
+        cp = e_plus / dp
+        cm = e_minus / dm
+        id_coef = (cp + cm).sum(-1) / 2
+        p_coef = (cp - cm) / 2
+        return (id_coef[:, None, None] * eye
+                + (p_coef @ obs_flat).reshape(-1, d, d)) / s
+
+    with full_f32_matmul():
+        if warm_start:
+            rho_lin = (eye + (e @ obs_flat).reshape(b, d, d)) / d
+            rho = project_state_matrix_to_physical((rho_lin + dag(rho_lin))
+                                                   / 2)
+        else:
+            rho = (eye / d).expand(b, d, d).clone()
+        its = torch.zeros(b, dtype=torch.int32, device=e.device)
+        active = torch.arange(b if maxiter > 0 else 0, device=e.device)
+        while active.numel():
+            r = rho[active]
+            tk = compute_r(r, e_plus[active], e_minus[active]) - eye
+            if entropy_penalty > 0.0:
+                lg = _logm_psd(r)
+                tk = tk - entropy_penalty * (lg - eye * _trace(r @ lg))
+            if beta > 0.0:
+                tk = tk * (num_meas[active] / 2)[:, None, None]
+                tk = tk + beta * (pinv(r) - d * eye) / 2
+            update_map = eye + epsilon * tk
+            new = update_map @ r @ update_map
+            new = new / _trace(new)
+            diff = torch.linalg.matrix_norm(new - r)
+            rho[active] = new
+            its[active] += 1
+            active = active[(diff >= tol) & (its[active] < maxiter)]
+    return rho, its
+
+
+BLOCH_CHUNK = 8  # Bloch-MLE steps between two host reads of the stop test
+
+
+def _mle_bloch_kernel(e: torch.Tensor, epsilon: float, tol: float,
+                      maxiter: int, warm_start: bool
+                      ) -> Tuple[torch.Tensor, int]:
+    """One-qubit diluted MLE in the Bloch representation, whole batch at
+    once: (B, 3) expectations of X, Y, Z -> ((B, 3) Bloch vectors, steps
+    run).
+
+    The same update as :func:`_mle_general_batched` for
+    ``obs_mats = [X, Y, Z]`` without MaxEnt or hedging: with
+    rho = (I + r.sigma)/2 and U = u0 I + u.sigma it is the real closed form
+
+        r' = [(u0^2 - |u|^2) r + 2 u (u0 + u.r)] / [(u0^2 + |u|^2) + 2 u0 (u.r)],
+
+    elementwise arithmetic on a (3, B) tensor, one plane per component.
+    Problems freeze once their change |dr|/sqrt(2) (the Frobenius change of
+    rho) falls below ``tol``, and no step runs past ``maxiter``, so the
+    result does not depend on how often the loop reads whether any problem
+    is still going: once per :data:`BLOCH_CHUNK` steps, one host
+    synchronization each on the card.
+    """
+    feps = torch.finfo(e.dtype).eps
+    sqrt2 = math.sqrt(2.0)
+    ev = e.T.contiguous()
+    if warm_start:
+        # the physical projection of the linear-inversion estimate: the 2x2
+        # eigenvalues are (1 +/- |e|)/2, so waterfilling clips to the
+        # closest point of the unit ball along e
+        sq = ev * ev
+        r = ev * (1 / torch.sqrt(sq[0] + sq[1] + sq[2]).clamp(min=1.0))
+    else:
+        r = torch.zeros_like(ev)
+    ep, em = 1 + ev, 1 - ev
+    diff = torch.full(ev.shape[1:], math.inf, dtype=e.dtype, device=e.device)
+    it, going = 0, ev.shape[1] > 0
+    while going and it < maxiter:
+        for _ in range(min(BLOCH_CHUNK, maxiter - it)):
+            dp, dm = 1 + r, 1 - r
+            dp = torch.where(dp.abs() < feps, feps, dp)
+            dm = torch.where(dm.abs() < feps, feps, dm)
+            cp, cm = ep / dp, em / dm
+            sc, bc = cp + cm, (cp - cm) / 6
+            u0 = 1 + epsilon * ((sc[0] + sc[1] + sc[2]) / 6 - 1)
+            u = epsilon * bc
+            uu, ur = u * u, u * r
+            uu = uu[0] + uu[1] + uu[2]
+            ur = ur[0] + ur[1] + ur[2]
+            cr = u0 * u0 - uu
+            cu = 2 * (u0 + ur)
+            den = (u0 * u0 + uu) + 2 * u0 * ur
+            new = (cr * r + u * cu) / den
+            dd = new - r
+            dd = dd * dd
+            step = torch.sqrt(dd[0] + dd[1] + dd[2]) / sqrt2
+            active = diff >= tol
+            r = torch.where(active, new, r)
+            diff = torch.where(active, step, diff)
+            it += 1
+        going = bool((diff >= tol).any())
+    return r.T, it
+
+
+def bloch_to_density(r: torch.Tensor, cdtype=None) -> torch.Tensor:
+    """(..., 3) Bloch vectors -> (..., 2, 2) density matrices (I + r.sigma)/2."""
+    if cdtype is None:
+        cdtype = (torch.complex128 if r.dtype == torch.float64
+                  else torch.complex64)
+    x, y, z = r.unbind(-1)
+    zero = torch.zeros_like(x)
+    re = torch.stack([torch.stack([1 + z, x], -1),
+                      torch.stack([x, 1 - z], -1)], -2)
+    im = torch.stack([torch.stack([zero, -y], -1),
+                      torch.stack([y, zero], -1)], -2)
+    return (torch.complex(re, im) / 2).to(cdtype)
+
+
+def mle_bloch_flops_per_solve(maxiter: int) -> int:
+    """Real-arithmetic FLOPs per problem of :func:`_mle_bloch_kernel` at its
+    iteration cap (counting a division as one): ~57 a step + 11 for the
+    warm start."""
+    return 57 * maxiter + 11
+
+
+def _is_xyz_pauli_stack(obs_mats) -> bool:
+    """True when ``obs_mats`` (a numpy array or a tensor on any device) is
+    a (3, 2, 2) stack equal to [X, Y, Z]. The JAX package answers False for
+    tracers and accelerator arrays, whose complex values it cannot fetch on
+    every backend; here the values are compared wherever they lie."""
+    if isinstance(obs_mats, torch.Tensor):
+        obs_mats = obs_mats.detach().resolve_conj().cpu().numpy()
+    elif not isinstance(obs_mats, np.ndarray):
+        return False
+    if obs_mats.shape != (3, 2, 2):
+        return False
+    return bool(np.allclose(obs_mats, pauli_basis_matrices(1)[1:],
+                            atol=1e-12))
+
+
+def iterative_mle_state_estimate_batched(obs_mats, expectations, num_meas,
+                                         epsilon: float = 0.1,
+                                         entropy_penalty: float = 0.0,
+                                         beta: float = 0.0, tol: float = 1e-9,
+                                         maxiter: int = 10_000,
+                                         warm_start: bool = False,
+                                         method: str = "auto",
+                                         representation: str = "density",
+                                         device=None) -> torch.Tensor:
+    """Batched diluted MLE of states.
+
+    :param obs_mats: (S, d, d) shared observables.
+    :param expectations: (B, S) measured expectations per problem.
+    :param num_meas: (B,) total shot counts (read only by the hedged
+        variant).
+    :param warm_start: start from the projected linear-inversion estimate
+        (``obs_mats`` must be the full traceless Pauli basis); the same fixed
+        point in far fewer iterations.
+    :param method: ``"auto"`` sends plain-DIMLE one-qubit problems
+        (``obs_mats`` equal to [X, Y, Z], no MaxEnt or hedging) to the Bloch
+        update :func:`_mle_bloch_kernel`; ``"bloch"`` forces it (and raises
+        where it does not apply); ``"general"`` forces
+        :func:`_mle_general_batched`.
+    :param representation: ``"density"`` returns (B, d, d) complex density
+        matrices; ``"bloch"`` the (B, 3) real Bloch vectors
+        (rho = (I + r.sigma)/2), on the Bloch route only.
+    :param device: where numpy or list inputs run, the card by default
+        (without a card, pass ``device="cpu"``); tensor inputs run where
+        ``expectations`` (or, failing that, ``obs_mats``) lies.
+    :return: (B, d, d) density matrices or (B, 3) Bloch vectors, each
+        problem converged on its own.
+    """
+    eligible = (entropy_penalty == 0.0 and beta == 0.0
+                and _is_xyz_pauli_stack(obs_mats))
+    if method == "bloch" and not eligible:
+        raise ValueError(
+            "method='bloch' requires obs_mats == [X, Y, Z] and "
+            "entropy_penalty == beta == 0")
+    if method not in ("auto", "bloch", "general"):
+        raise ValueError(f"unknown method {method!r}")
+    if representation not in ("density", "bloch"):
+        raise ValueError(f"unknown representation {representation!r}")
+    dev = entry_device(device, expectations, obs_mats, num_meas)
+    obs = torch.as_tensor(obs_mats, device=dev)
+    e = torch.as_tensor(expectations, device=dev)
+    if method != "general" and eligible:
+        r, _ = _mle_bloch_kernel(e.real if e.is_complex() else e, epsilon,
+                                 tol, maxiter, warm_start)
+        if representation == "bloch":
+            return r
+        return bloch_to_density(r, torch.promote_types(obs.dtype, r.dtype))
+    if representation == "bloch":
+        raise ValueError("representation='bloch' requires the Bloch route "
+                         "(method != 'general' and obs_mats == [X, Y, Z] "
+                         "with entropy_penalty == beta == 0)")
+    return _mle_general_batched(
+        obs, e, torch.as_tensor(num_meas, device=dev), epsilon,
+        entropy_penalty, beta, tol, maxiter, warm_start)[0]
 
 
 def pgdb_a_row_pair(in_mat: np.ndarray, op: np.ndarray,

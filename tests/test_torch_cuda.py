@@ -604,3 +604,142 @@ def test_kernel_split_sweeps_against_plain_version(cuda):
     gen = torch.Generator(device=cuda).manual_seed(256)
     n, _ = synth_process_datasets(gen, in32.a, 4, 256, 2000)
     _hold_against_plain(in32, in64, n, SPLIT_2Q)
+
+
+# ---------------------------------------------------------------------------
+# State tomography, the fitter and the RB simulator on the card: plain
+# torch, held against their float64 runs on the CPU.
+
+def _bloch_data(seed, batch, n_qubits=1, shots=2000):
+    """Haar pure states' sampled Pauli expectations (numpy, float64)."""
+    from forest_benchmarking_tpu_torch.utils import pauli_basis_matrices
+    rng = np.random.RandomState(seed)
+    obs = pauli_basis_matrices(n_qubits)[1:]
+    d = 2 ** n_qubits
+    psi = rng.randn(batch, d) + 1j * rng.randn(batch, d)
+    psi /= np.linalg.norm(psi, axis=1, keepdims=True)
+    exact = np.real(np.einsum("sij,bj,bi->bs", obs, psi, psi.conj()))
+    e = 2 * rng.binomial(shots, (1 + exact) / 2) / shots - 1
+    return obs, e, np.full((batch,), len(obs) * float(shots))
+
+
+def test_bloch_mle_on_the_card(cuda):
+    """Numpy inputs run on the card by default: float64 within 1e-9 of the
+    CPU run, float32 within 1e-4."""
+    from forest_benchmarking_tpu_torch import tomography
+    obs, e, nm = _bloch_data(1, 4096)
+    kw = dict(tol=1e-7, maxiter=60, warm_start=True, representation="bloch")
+    cpu = tomography.iterative_mle_state_estimate_batched(
+        obs, e, nm, device="cpu", **kw)
+    card = tomography.iterative_mle_state_estimate_batched(obs, e, nm, **kw)
+    assert card.device.type == "cuda" and card.dtype == torch.float64
+    assert (card.cpu() - cpu).abs().max().item() < 1e-9
+    card32 = tomography.iterative_mle_state_estimate_batched(
+        obs, torch.tensor(e, dtype=torch.float32, device=cuda),
+        torch.tensor(nm, device=cuda), **kw)
+    assert card32.dtype == torch.float32
+    assert (card32.cpu().double() - cpu).abs().max().item() < 1e-4
+
+
+def test_general_mle_on_the_card(cuda):
+    """The 2Q general loop (warm start) on the card, float64, within 1e-8
+    of the CPU run (a problem may stop one step apart, by less than tol)."""
+    from forest_benchmarking_tpu_torch import tomography
+    obs, e, nm = _bloch_data(2, 16, n_qubits=2, shots=3000)
+    kw = dict(tol=1e-9, maxiter=2000, warm_start=True)
+    cpu = tomography.iterative_mle_state_estimate_batched(
+        obs, e, nm, device="cpu", **kw)
+    card = tomography.iterative_mle_state_estimate_batched(
+        obs, e, nm, device=cuda, **kw)
+    assert card.device.type == "cuda"
+    assert (card.cpu() - cpu).abs().max().item() < 1e-8
+
+
+def test_waterfilling_on_the_card(cuda):
+    from forest_benchmarking_tpu_torch.ops.project_state_matrix import (
+        project_state_matrix_to_physical)
+    rng = np.random.RandomState(3)
+    x = rng.randn(64, 4, 4) + 1j * rng.randn(64, 4, 4)
+    h = torch.tensor((x + x.conj().transpose(0, 2, 1)) / 2 + np.eye(4))
+    cpu = project_state_matrix_to_physical(h)
+    card = project_state_matrix_to_physical(h.to(cuda))
+    assert (card.cpu() - cpu).abs().max().item() < 1e-10
+    card64 = project_state_matrix_to_physical(h.to(cuda, torch.complex64))
+    assert (card64.cpu().to(cpu.dtype) - cpu).abs().max().item() < 1e-5
+
+
+def test_lm_fit_on_the_card(cuda):
+    """The float64 fit on the card within 1e-6 of the CPU's on the
+    parameters and 1e-10 relative on the cost, on curves the fitter
+    converges on (the JAX suite's batched case: 24 depths, decays in
+    [0.85, 0.98]); the card's pow and fused multiply-adds move the step
+    decisions that tie near a minimum, so a flat valley is left at a
+    slightly different point. At config 3's 50 steps some curves are still
+    sliding along such a valley, and round-off moves where they stop (2.4e-5
+    seen on the card), so there the bar is float32 against float64: within
+    1e-4 in mean |decay error|."""
+    from forest_benchmarking_tpu_torch.analysis import fitting
+    rng = np.random.RandomState(5)
+    x = np.arange(1, 25).astype(float)
+    decays = rng.uniform(0.85, 0.98, 256)
+    y = 0.5 + 0.5 * decays[:, None] ** x + rng.normal(0, 0.005, (256, 24))
+    p0 = [1.0, 0.9, 0.0]
+    cpu, chi_cpu, _ = fitting.fit_model_batched(
+        fitting._base_param_decay_p, x, y, None, p0, device="cpu")
+    card, chi_card, _ = fitting.fit_model_batched(
+        fitting._base_param_decay_p, x, y, None, p0)
+    assert card.device.type == "cuda" and card.dtype == torch.float64
+    assert (card.cpu() - cpu).abs().max().item() < 1e-6
+    assert ((chi_card.cpu() - chi_cpu).abs() <= 1e-10 * chi_cpu).all()
+    x = np.arange(2, 34, 4).astype(float)
+    decays = rng.uniform(0.9, 0.995, 256)
+    y = rng.binomial(500, 0.5 + 0.5 * decays[:, None] ** x) / 500
+    p0 = [0.5, 0.95, 0.5]
+    p64 = fitting.fit_model_batched(fitting._base_param_decay_p, x, y, None,
+                                    p0, num_iters=50)[0]
+    p32 = fitting.fit_model_batched(
+        fitting._base_param_decay_p, torch.tensor(x, device=cuda),
+        torch.tensor(y, dtype=torch.float32, device=cuda), None, p0,
+        num_iters=50)[0]
+    assert p32.dtype == torch.float32 and torch.isfinite(p32).all()
+    truth = torch.tensor(decays, device=cuda)
+    err32 = (p32[:, 1].double() - truth).abs().mean()
+    err64 = (p64[:, 1] - truth).abs().mean()
+    assert abs(err32 - err64).item() < 1e-4
+
+
+def test_rb_simulator_on_the_card(cuda):
+    from forest_benchmarking_tpu_torch import randomized_benchmarking as rb
+    rng = np.random.RandomState(5)
+    ptms = np.stack([np.stack([rb.unitary_to_ptm_np(np.linalg.qr(
+        rng.randn(2, 2) + 1j * rng.randn(2, 2))[0]) for _ in range(6)])
+        for _ in range(8)])
+    noise = np.diag([1.0, 0.95, 0.95, 0.95])
+    lengths = [6, 5, 4, 6, 3, 2, 6, 1]
+    cpu = rb.simulate_rb_survival_batched(ptms, noise, lengths=lengths,
+                                          device="cpu")
+    card = rb.simulate_rb_survival_batched(ptms, noise, lengths=lengths)
+    assert card.device.type == "cuda"
+    assert (card.cpu() - cpu).abs().max().item() < 1e-10
+    sampled = rb.simulate_rb_survival_batched(
+        ptms, noise, torch.Generator(device=cuda).manual_seed(0),
+        num_shots=1000, lengths=lengths)
+    assert sampled.device.type == "cuda"
+    assert torch.allclose(sampled * 1000, (sampled * 1000).round())
+    with pytest.raises(ValueError, match="generator"):
+        rb.simulate_rb_survival_batched(ptms, noise, torch.Generator(),
+                                        num_shots=10)
+
+
+def test_fits_run_on_the_card_by_default(cuda):
+    from forest_benchmarking_tpu_torch import qubit_spectroscopy as qs
+    from forest_benchmarking_tpu_torch import randomized_benchmarking as rb
+    x = np.linspace(1, 40, 15)
+    z = 1 - 2 * np.exp(-x / 12)
+    cpu = qs.fit_t1_results(x, z, device="cpu")
+    card = qs.fit_t1_results(x, z)
+    assert abs(card.params["decay_time"].value
+               - cpu.params["decay_time"].value) < 1e-6
+    fit = rb.fit_rb_results([2, 4, 8, 16], [[0.9], [0.8], [0.65], [0.45]],
+                            [[0.01]] * 4)
+    assert np.isfinite(fit.params["decay"].value)

@@ -54,9 +54,11 @@ def test_port_imports_without_jax_package_or_toolchain():
     info = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("benchmarks", "tomography", "kernels", "ops.calculational",
                  "ops.lanes_apg", "ops.pallas_eigh", "ops.pallas_traj",
-                 "ops.project_superoperators", "ops.random_operators",
-                 "ops.superoperator_transformations", "quantum_volume",
-                 "sim.noise", "sim.statevector", "utils"):
+                 "ops.project_state_matrix", "ops.project_superoperators",
+                 "ops.random_operators", "ops.superoperator_transformations",
+                 "quantum_volume", "sim.noise", "sim.statevector", "utils",
+                 "analysis", "analysis.fitting", "randomized_benchmarking",
+                 "qubit_spectroscopy"):
         assert f"forest_benchmarking_tpu_torch.{name}" in info["names"]
     assert info["jax"] == []
     assert info["jax_package"] == []
