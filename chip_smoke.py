@@ -2,8 +2,8 @@
 """On-card smoke check of the PyTorch port's main paths: batched 2Q process
 tomography (BASELINE config 2), batched quantum volume (config 5), batched
 1Q process tomography, the per-problem process-MLE routes, the Jacobi CP
-projection, batched state tomography (config 1) and batched RB decay fits
-(config 3).
+projection, batched state tomography (config 1), batched RB decay fits
+(config 3) and channel distances with batched diamond norms (config 4).
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
@@ -178,6 +178,28 @@ Phases, each of which must pass:
    compose to the identity: survival 1 without noise and
    (1 + 0.9^L)/2 under depolarizing noise (1e-10), and
    ``fit_rb_results`` of 5000-shot samples recovers the decay 0.9 (0.02).
+16. BASELINE config 4 (``bench_all.py:176``), plain PyTorch: 2 x 1024 and
+   2 x 2048 2Q BCSZ Choi matrices (Kraus rank 16), float64, drawn on the
+   card from the phase's own generator before any timing (float32 runs use
+   their complex64 casts). The distance step at B = 1024,
+   ``process_fidelity(choi2pauli_liouville(c0), choi2pauli_liouville(c1))``
+   and ``trace_distance(c0 / 4, c1 / 4)``: finite (B,) outputs, float32
+   within 1e-5 of float64 in both, and no launch of a hand kernel; per
+   dtype CUDA events (median of 3 after a warm-up), pairs/s, the host
+   clock and a profiler pass (launches, busy time, synchronizations); the
+   float32 step with the generation of its channels, as the JAX row times
+   it. The diamond norm at B = 2048 through ``diamond_norm_distance``
+   (``method="auto"``), float32: it must take the fused route
+   (``ops/lanes_dnorm.dnorm_planes``, one call) and launch no hand kernel;
+   CUDA events, dnorms/s, the host clock, a profiler pass, the mean diamond
+   norm, ``dnorm_flops_per_problem`` with the bound and its share; the
+   dense route (``method="dense"``) at the same B with its Adam steps, for
+   comparison. The first 64 pairs' fused values within 1e-5 of a float64
+   dense gold on the card (800 steps, ``stop_tol=0``, two restarts), with
+   the max and mean error. Analytic cases in float32 on the card through
+   ``method="auto"``, held to 1e-5: dnorm(I, X) = 2, depolarizing (p = 0.1,
+   0.3, 0.7) against the identity = 1.5 p, and a channel against itself 0
+   with no NaN (1Q and 2Q).
 
 The second-to-last line is the per-kernel JSON record: ``launches`` from
 the main paths; ``ms``/``plain_ms``: the kernel alone and the plain version
@@ -257,6 +279,10 @@ RB_ITERS = 50
 RB_P0 = (0.5, 0.95, 0.5)
 SCIPY_BATCH = 64       # curves held against scipy's curve_fit
 SCIPY_ITERS = 300      # LM steps of that check: converged, not capped
+DIST_BATCH = 1024      # config 4 (bench_all.py:176): channel pairs
+DNORM_BATCH = 2048     # config 4: diamond norms
+GOLD_PAIRS = 64        # pairs held against the f64 dense gold
+DNORM_BAR = 1e-5       # the JAX package's on-chip bar (bench_all.py:182)
 PEAK_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # the dim = 4 kernel with one problem per block, B = 16384, headline /
@@ -429,20 +455,27 @@ def nbytes(*tensors) -> int:
 
 
 @contextlib.contextmanager
-def counting_eigh():
-    """Count the calls of ``torch.linalg.eigh`` in the block; yields a
-    one-element list that holds the count."""
-    count, real = [0], torch.linalg.eigh
+def counting_calls(owner, name: str):
+    """Count the calls of ``owner.name`` in the block; yields a one-element
+    list that holds the count."""
+    count, real = [0], getattr(owner, name)
 
-    def eigh(*args, **kwargs):
+    def counted(*args, **kwargs):
         count[0] += 1
         return real(*args, **kwargs)
 
-    torch.linalg.eigh = eigh
+    setattr(owner, name, counted)
     try:
         yield count
     finally:
-        torch.linalg.eigh = real
+        setattr(owner, name, real)
+
+
+def print_top(top) -> None:
+    """One line for each of the top device kernels of a profile."""
+    for ev in top:
+        print(f"  device {ev.self_device_time_total / 1e3:9.3f} ms "
+              f"x{ev.count:<6d} {ev.key[:64]}")
 
 
 @contextlib.contextmanager
@@ -654,9 +687,7 @@ def phase_state_tomography(card: str, dev: torch.device) -> None:
               f"{bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / ms:.3f}% "
               f"of it; profiled: {launches} device launches, busy "
               f"{busy:.3f} ms, {syncs} synchronizations on {card}")
-        for ev in top:
-            print(f"  device {ev.self_device_time_total / 1e3:9.3f} ms "
-                  f"x{ev.count:<6d} {ev.key[:64]}")
+        print_top(top)
 
     # the general route: 2Q, all 15 traceless Paulis, warm start
     z = torch.randn((GENERAL_BATCH, 4, 2), generator=g, device=dev,
@@ -698,9 +729,7 @@ def phase_state_tomography(card: str, dev: torch.device) -> None:
             maxiter=GENERAL_MAXITER, warm_start=True))
     print(f"profile general route complex64: {launches} device launches, "
           f"busy {busy:.3f} ms, {syncs} synchronizations")
-    for ev in top:
-        print(f"  device {ev.self_device_time_total / 1e3:9.3f} ms "
-              f"x{ev.count:<6d} {ev.key[:64]}")
+    print_top(top)
     gap = abs(fid[torch.complex64].mean() - fid[torch.complex128].mean())
     check(gap.item() <= 1e-4, f"general route: f32 mean fidelity "
           f"{gap.item():.3e} from f64")
@@ -772,9 +801,7 @@ def phase_rb_fits(card: str, dev: torch.device) -> None:
               f"{bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / ms:.3f}% "
               f"of it; profiled: {launches} device launches, busy "
               f"{busy:.3f} ms, {syncs} synchronizations on {card}")
-        for ev in top:
-            print(f"  device {ev.self_device_time_total / 1e3:9.3f} ms "
-                  f"x{ev.count:<6d} {ev.key[:64]}")
+        print_top(top)
     # the final covariance's pseudo-inverse alone, on J^T J of that size
     jtj = torch.linalg.inv(cov32.double()).float().contiguous()
     ms_pinv, _ = cuda_ms(lambda: pinv(jtj))
@@ -860,6 +887,142 @@ def phase_rb_fits(card: str, dev: torch.device) -> None:
           f"RB simulator: {dev_ideal:.3e} / {dev_exact:.3e}")
     check(abs(decay - 0.9) < 0.02, f"RB simulator: decay {decay}")
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_distances(card: str, dev: torch.device) -> None:
+    """16. BASELINE config 4 at bench_all.py:176's size; see the module
+    docstring."""
+    t_phase = time.perf_counter()
+    from forest_benchmarking_tpu_torch import distance_measures as dm
+    from forest_benchmarking_tpu_torch.ops import lanes_dnorm
+    from forest_benchmarking_tpu_torch.ops.random_operators import (
+        rand_map_with_BCSZ_dist)
+    from forest_benchmarking_tpu_torch.ops.superoperator_transformations \
+        import choi2pauli_liouville, kraus2choi
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+
+    def draw(batch, dtype=torch.float64):
+        return [rand_map_with_BCSZ_dist(g, 4, 16, batch=(batch,), dtype=dtype)
+                for _ in range(2)]
+
+    dist64, dnorm64 = draw(DIST_BATCH), draw(DNORM_BATCH)
+    dist32 = [c.to(torch.complex64) for c in dist64]
+    dnorm32 = [c.to(torch.complex64) for c in dnorm64]
+
+    def step(c0, c1):
+        pf = dm.process_fidelity(choi2pauli_liouville(c0),
+                                 choi2pauli_liouville(c1))
+        return pf, dm.trace_distance(c0 / 4, c1 / 4)
+
+    # the main path: the distance step and the diamond norms in f32
+    counters = port_launches()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    with counting_calls(lanes_dnorm, "dnorm_planes") as fused_calls:
+        pf32, td32 = step(*dist32)
+        t0 = time.perf_counter()
+        dn32 = dm.diamond_norm_distance(*dnorm32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    hand = [c.launches for c in counters]
+    pf64, td64 = step(*dist64)
+    err_pf = (pf32.double() - pf64).abs().max().item()
+    err_td = (td32.double() - td64).abs().max().item()
+    print(f"main path config 4: distance step B={DIST_BATCH}: mean process "
+          f"fidelity {pf64.mean().item():.6f}, mean trace distance "
+          f"{td64.mean().item():.6f}; f32 against f64 on the card: process "
+          f"fidelity {err_pf:.3e}, trace distance {err_td:.3e}; diamond "
+          f"norm B={DNORM_BATCH} (method auto, f32): {fused_calls[0]} fused "
+          f"call(s), host clock {wall:.3f} s (first call), mean "
+          f"{dn32.double().mean().item():.6f}; hand-kernel launches {hand} "
+          f"(the path runs none) on {card}")
+    check(pf32.shape == td32.shape == (DIST_BATCH,)
+          and dn32.shape == (DNORM_BATCH,)
+          and all(bool(torch.isfinite(x).all()) for x in (pf32, td32, dn32)),
+          "config 4: output not finite or of the wrong shape")
+    check(err_pf <= 1e-5 and err_td <= 1e-5,
+          f"config 4: f32 distance step {err_pf:.3e} / {err_td:.3e} from f64")
+    check(fused_calls[0] == 1, f"diamond norm: {fused_calls[0]} fused calls, "
+          "want 1 (method auto on the card)")
+    check(sum(hand) == 0, f"config 4 launched hand kernels {hand}")
+
+    for name, pair in (("f32", dist32), ("f64", dist64)):
+        ms, _ = cuda_ms(lambda: step(*pair))
+        host = host_ms(lambda: step(*pair))
+        launches, busy, syncs, top, _ = profiled(lambda: step(*pair))
+        print(f"timing distance step {name}: B={DIST_BATCH} CUDA events "
+              f"{ms:.3f} ms, {DIST_BATCH / (ms / 1e3):.0f} pairs/s, host "
+              f"clock {host:.3f} ms; profiled: {launches} device launches, "
+              f"busy {busy:.3f} ms, {syncs} synchronizations on {card}")
+        print_top(top)
+    ms_gen, _ = cuda_ms(lambda: step(*draw(DIST_BATCH, torch.float32)))
+    print(f"timing distance step f32 with the generation of its channels: "
+          f"B={DIST_BATCH} CUDA events {ms_gen:.3f} ms, "
+          f"{DIST_BATCH / (ms_gen / 1e3):.0f} pairs/s on {card}")
+
+    ms_f, _ = cuda_ms(lambda: dm.diamond_norm_distance(*dnorm32))
+    host_f = host_ms(lambda: dm.diamond_norm_distance(*dnorm32), reps=1)
+    launches, busy, syncs, top, _ = profiled(
+        lambda: dm.diamond_norm_distance(*dnorm32))
+    flops = lanes_dnorm.dnorm_flops_per_problem(4)
+    bound = bound_ms(DNORM_BATCH * flops, nbytes(*dnorm32)
+                     + DNORM_BATCH * dn32.element_size())
+    print(f"timing diamond norm fused f32: B={DNORM_BATCH} CUDA events "
+          f"{ms_f:.3f} ms, {DNORM_BATCH / (ms_f / 1e3):.0f} dnorms/s, host "
+          f"clock {host_f:.3f} ms; profiled: {launches} device launches, "
+          f"busy {busy:.3f} ms ({100 * busy / ms_f:.1f}% of the call), "
+          f"{syncs} synchronizations; dnorm_flops_per_problem(4) = "
+          f"{flops:.0f}; bound {bound[0]:.4f} ms ({bound[1]}), "
+          f"{100 * bound[0] / ms_f:.4f}% of it on {card}")
+    print_top(top)
+    j32 = 0.5 * ((dnorm32[0] - dnorm32[1])
+                 + (dnorm32[0] - dnorm32[1]).mH)
+    steps = dm._dnorm_dense(j32, 200, 1, 7, True, 3e-7, 24, 50.0)[1]
+    ms_d, dense32 = cuda_ms(
+        lambda: dm.diamond_norm_distance(*dnorm32, method="dense"), reps=1)
+    launches, busy, syncs, _, _ = profiled(
+        lambda: dm.diamond_norm_distance(*dnorm32, method="dense"))
+    print(f"timing diamond norm dense f32: B={DNORM_BATCH} {steps} Adam "
+          f"steps; CUDA events {ms_d:.3f} ms, "
+          f"{DNORM_BATCH / (ms_d / 1e3):.0f} dnorms/s; profiled: {launches} "
+          f"device launches, busy {busy:.3f} ms, {syncs} synchronizations; "
+          f"max |dense - fused| {(dense32 - dn32).abs().max().item():.3e} on "
+          f"{card}")
+
+    gold = dm.diamond_norm_distance(
+        dnorm64[0][:GOLD_PAIRS], dnorm64[1][:GOLD_PAIRS], method="dense",
+        num_iters=800, stop_tol=0.0, num_restarts=2)
+    err = (dn32[:GOLD_PAIRS].double() - gold).abs()
+    print(f"diamond norm accuracy: first {GOLD_PAIRS} pairs, fused f32 "
+          f"against the f64 dense gold (800 steps, two restarts) on the "
+          f"card: max {err.max().item():.3e}, mean {err.mean().item():.3e}")
+    check(err.max().item() <= DNORM_BAR,
+          f"diamond norm: fused f32 {err.max().item():.3e} from the f64 gold")
+
+    c = torch.complex64
+    eye = kraus2choi(torch.eye(2, dtype=c, device=dev)[None])
+    x = kraus2choi(torch.tensor([[0, 1], [1, 0]], dtype=c, device=dev)[None])
+    ps = torch.tensor([0.1, 0.3, 0.7], device=dev)
+    depol = ((1 - ps[:, None, None]) * eye
+             + ps[:, None, None] * torch.eye(4, dtype=c, device=dev) / 2)
+    with counting_calls(lanes_dnorm, "dnorm_planes") as fused_calls:
+        ix = dm.diamond_norm_distance(eye, x).item()
+        dep = dm.diamond_norm_distance(depol, eye.expand(3, 4, 4))
+        self1 = dm.diamond_norm_distance(depol, depol)
+        self2 = dm.diamond_norm_distance(dnorm32[0][:8], dnorm32[0][:8])
+    dep_err = (dep - 1.5 * ps).abs().max().item()
+    self_max = max(self1.abs().max().item(), self2.abs().max().item())
+    print(f"diamond norm analytic, f32 on the card (fused): dnorm(I, X) = "
+          f"{ix:.7f}; depolarizing max |dnorm - 1.5 p| {dep_err:.3e}; "
+          f"self-distance max {self_max:.3e}")
+    check(fused_calls[0] == 4, f"analytic cases: {fused_calls[0]} fused "
+          "calls, want 4")
+    check(abs(ix - 2.0) <= DNORM_BAR and dep_err <= DNORM_BAR,
+          f"diamond norm analytic: I/X {ix}, depolarizing {dep_err:.3e}")
+    check(bool(torch.isfinite(self1).all() and torch.isfinite(self2).all())
+          and self_max <= DNORM_BAR, f"diamond norm self-distance {self_max}")
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1404,7 +1567,7 @@ def main() -> int:
         for name, kw in routes:
             lanes_apg.apg_fused.launches = 0
             pallas_eigh.cp_project_pallas.launches = 0
-            with counting_eigh() as eighs:
+            with counting_calls(torch.linalg, "eigh") as eighs:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out = tomography.pgdb_process_estimate_batched(
@@ -1529,6 +1692,9 @@ def main() -> int:
     # run no TPU kernel)
     phase_state_tomography(card, dev)
     phase_rb_fits(card, dev)
+
+    # 16. BASELINE config 4 (plain torch: no TPU kernel on this path)
+    phase_distances(card, dev)
 
     def record(name, source, replaces, launch_count, err, ms_k, ms_p, bound,
                library_ms=None):

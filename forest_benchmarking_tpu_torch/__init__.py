@@ -39,6 +39,17 @@ that take tensors run where their tensors lie; the entry points that take
 numpy arrays or lists run on the card unless called with
 ``device="cpu"``.
 
+Slice 10 covers BASELINE config 4, plain PyTorch (the JAX package runs it
+under XLA, with no Pallas kernel): ``distance_measures`` (the state and
+process measures, ``watrous_bounds`` and ``diamond_norm_distance`` with
+its dense autograd route and, for dim <= 4 on the card, the fused route
+``ops.lanes_dnorm``), the superoperator conversions of
+``ops.superoperator_transformations``, the rest of ``ops.calculational``
+and ``ops.random_operators``, ``proj_choi_to_unitary``, and
+``ops.apply_superoperator``, ``ops.compose_superoperators``,
+``ops.channel_approximation``, ``ops.validate_operator`` and
+``ops.validate_superoperator``.
+
 The package imports neither JAX nor the JAX package: it keeps its own
 copies of the host helpers it needs. The quantum-volume entry points run on
 the card unless the caller passes ``device="cpu"``; the process-tomography

@@ -1,8 +1,10 @@
 """Batched calculational helpers: conjugate transpose, hermitian part, kron,
-partial trace, and the pseudo-inverse with the JAX package's cutoff.
+partial trace, inner and outer products, the PSD square root, and the
+pseudo-inverse with the JAX package's cutoff.
 
-Port of ``forest_benchmarking_tpu/ops/calculational.py`` (subset). Every
-function takes arbitrary leading batch dimensions.
+Port of ``forest_benchmarking_tpu/ops/calculational.py``. Every function
+takes arbitrary leading batch dimensions; float32 products run in full
+float32, not TF32.
 """
 from __future__ import annotations
 
@@ -10,7 +12,10 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["dag", "hermitianize", "kron", "partial_trace", "pinv"]
+from forest_benchmarking_tpu_torch.ops.lanes_apg import full_f32_matmul
+
+__all__ = ["dag", "hermitianize", "kron", "partial_trace", "pinv",
+           "outer_product", "inner_product", "sqrtm_psd"]
 
 
 def dag(a: torch.Tensor) -> torch.Tensor:
@@ -67,3 +72,32 @@ def partial_trace(rho: torch.Tensor, keep: Sequence[int],
     for i in keep:
         dk *= dims[i]
     return rho.reshape(*batch_shape, dk, dk)
+
+
+def outer_product(bra1: torch.Tensor, bra2: torch.Tensor) -> torch.Tensor:
+    """|bra1><bra2| for (..., d, 1) column vectors."""
+    with full_f32_matmul():
+        return bra1 @ dag(bra2)
+
+
+def inner_product(bra1: torch.Tensor, bra2: torch.Tensor) -> torch.Tensor:
+    """<bra1|bra2> for (..., d, 1) column vectors; returns (..., 1, 1)."""
+    with full_f32_matmul():
+        return dag(bra1) @ bra2
+
+
+def sqrtm_psd(matrix: torch.Tensor) -> torch.Tensor:
+    """Square root of a (batched) positive semidefinite matrix via eigh.
+
+    Eigenvalues below ``d * eps * max|lambda|`` are clipped to zero: the
+    negative ones from round-off, as in the reference, and the pure eigh
+    noise of rank-deficient inputs, which the square root would amplify
+    from ~eps to ~sqrt(eps) (at f32, 1e-3 in the Uhlmann fidelity of pure
+    states).
+    """
+    w, v = torch.linalg.eigh(matrix)
+    d = matrix.shape[-1]
+    floor = d * torch.finfo(w.dtype).eps * w.abs().amax(-1, keepdim=True)
+    w = torch.sqrt(torch.where(w < floor, 0.0, w))
+    with full_f32_matmul():
+        return (v * w[..., None, :].to(v.dtype)) @ dag(v)

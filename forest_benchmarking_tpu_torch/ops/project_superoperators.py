@@ -1,8 +1,7 @@
 """Projections of Choi matrices onto the CP, TNI, TP and physical (CPTP) sets.
 
 Port of ``forest_benchmarking_tpu/ops/project_superoperators.py``: every
-projection takes arbitrary leading batch dimensions. ``proj_choi_to_unitary``
-is not ported yet (ROADMAP.md queue 1, item 4).
+projection takes arbitrary leading batch dimensions.
 
 Dykstra's alternating projection (:func:`proj_choi_to_physical`) is a
 batch-first loop with the per-problem Birgin-Raydan stop: a problem whose
@@ -22,6 +21,8 @@ import torch
 from forest_benchmarking_tpu_torch.ops.calculational import (
     dag, hermitianize, kron, partial_trace)
 from forest_benchmarking_tpu_torch.ops.lanes_apg import full_f32_matmul
+from forest_benchmarking_tpu_torch.ops.superoperator_transformations import (
+    kraus2choi, unvec)
 
 __all__ = [
     "proj_choi_to_completely_positive",
@@ -29,6 +30,7 @@ __all__ = [
     "proj_choi_to_trace_non_increasing",
     "proj_choi_to_trace_preserving",
     "proj_choi_to_physical",
+    "proj_choi_to_unitary",
 ]
 
 
@@ -146,3 +148,15 @@ def proj_choi_to_physical(choi: torch.Tensor,
         tp_change[active], cp_last[active] = new_tp, cp_proj
         active = active[~(crit < tol)]
     return state.reshape(shape)
+
+
+def proj_choi_to_unitary(choi: torch.Tensor) -> torch.Tensor:
+    """Closest unitary channel to the given (batched) Choi matrix [IntQC]:
+    the dominant eigenvector as the largest-norm Kraus operator, its polar
+    part U = u v^dag from the SVD, and the Choi matrix of U (invariant
+    under a global phase of U, so none is fixed)."""
+    _, vs = torch.linalg.eigh(hermitianize(choi))
+    kraus = unvec(vs[..., :, -1])  # eigh sorts ascending: the last column
+    u, _, vh = torch.linalg.svd(kraus)
+    with full_f32_matmul():
+        return kraus2choi((u @ vh)[..., None, :, :])

@@ -743,3 +743,70 @@ def test_fits_run_on_the_card_by_default(cuda):
     fit = rb.fit_rb_results([2, 4, 8, 16], [[0.9], [0.8], [0.65], [0.45]],
                             [[0.01]] * 4)
     assert np.isfinite(fit.params["decay"].value)
+
+
+def _bcsz_pairs(batch: int, seed: int):
+    """(c0, c1): float64 2Q BCSZ Choi matrices (Kraus rank 16) on the CPU."""
+    from forest_benchmarking_tpu_torch.ops.random_operators import (
+        rand_map_with_BCSZ_dist)
+    g = torch.Generator().manual_seed(seed)
+    return (rand_map_with_BCSZ_dist(g, 4, 16, batch=(batch,)),
+            rand_map_with_BCSZ_dist(g, 4, 16, batch=(batch,)))
+
+
+def _count_fused(monkeypatch):
+    """A list that grows by one on each call of the fused planes solver."""
+    from forest_benchmarking_tpu_torch.ops import lanes_dnorm
+    calls, real = [], lanes_dnorm.dnorm_planes
+
+    def counting(*args, **kwargs):
+        calls.append(args[0].device)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(lanes_dnorm, "dnorm_planes", counting)
+    return calls
+
+
+def test_dnorm_auto_takes_the_fused_route_on_the_card(cuda, monkeypatch):
+    from forest_benchmarking_tpu_torch import distance_measures as dm
+    c0, c1 = (c.to(cuda, torch.complex64) for c in _bcsz_pairs(8, 1))
+    calls = _count_fused(monkeypatch)
+    out = dm.diamond_norm_distance(c0, c1)
+    assert len(calls) == 1 and calls[0].type == "cuda"
+    assert out.shape == (8,) and out.device.type == "cuda"
+    # an explicit dense knob takes the dense route, as in JAX
+    dense = dm.diamond_norm_distance(c0, c1, num_iters=60)
+    assert len(calls) == 1 and dense.device.type == "cuda"
+    assert (dense - out).abs().max().item() < 1e-3
+
+
+def test_dnorm_fused_f32_on_the_card_against_cpu_f64_gold(cuda):
+    """8 2Q pairs: the card's f32 fused solve within 1e-5 of the CPU's f64
+    dense gold (800 steps, fixed schedule, two restarts)."""
+    from forest_benchmarking_tpu_torch import distance_measures as dm
+    c0, c1 = _bcsz_pairs(8, 2)
+    gold = dm.diamond_norm_distance(c0, c1, method="dense", num_iters=800,
+                                    num_restarts=2, stop_tol=0.0)
+    got = dm.diamond_norm_distance(c0.to(cuda, torch.complex64),
+                                   c1.to(cuda, torch.complex64))
+    assert got.dtype == torch.float32
+    assert (got.cpu().double() - gold).abs().max().item() < 1e-5
+
+
+def test_distance_step_f32_on_the_card_against_cpu_f64(cuda):
+    """64 2Q pairs: Pauli-Liouville matrices, process fidelity and trace
+    distance in f32 on the card within 1e-5 of f64 on the CPU."""
+    from forest_benchmarking_tpu_torch import distance_measures as dm
+    from forest_benchmarking_tpu_torch.ops.superoperator_transformations import (
+        choi2pauli_liouville)
+    c0, c1 = _bcsz_pairs(64, 3)
+    k0, k1 = (c.to(cuda, torch.complex64) for c in (c0, c1))
+    p0, p1 = choi2pauli_liouville(c0), choi2pauli_liouville(c1)
+    q0 = choi2pauli_liouville(k0)
+    assert q0.dtype == torch.complex64 and q0.device.type == "cuda"
+    assert (q0.cpu().to(p0.dtype) - p0).abs().max().item() < 1e-5
+    pf = dm.process_fidelity(q0, choi2pauli_liouville(k1))
+    assert (pf.cpu().double() - dm.process_fidelity(p0, p1)).abs().max() < 1e-5
+    td = dm.trace_distance(k0 / 4, k1 / 4)
+    assert (td.cpu().double() - dm.trace_distance(c0 / 4, c1 / 4)).abs().max() \
+        < 1e-5

@@ -58,7 +58,10 @@ def test_port_imports_without_jax_package_or_toolchain():
                  "ops.random_operators", "ops.superoperator_transformations",
                  "quantum_volume", "sim.noise", "sim.statevector", "utils",
                  "analysis", "analysis.fitting", "randomized_benchmarking",
-                 "qubit_spectroscopy"):
+                 "qubit_spectroscopy", "distance_measures",
+                 "ops.lanes_dnorm", "ops.apply_superoperator",
+                 "ops.compose_superoperators", "ops.channel_approximation",
+                 "ops.validate_operator", "ops.validate_superoperator"):
         assert f"forest_benchmarking_tpu_torch.{name}" in info["names"]
     assert info["jax"] == []
     assert info["jax_package"] == []

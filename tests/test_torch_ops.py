@@ -1,7 +1,10 @@
 """Port ops (calculational, vec/unvec, random operators) against the JAX
 package on the same numpy inputs, in float64."""
+import functools
+
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -11,9 +14,11 @@ from forest_benchmarking_tpu.ops import calculational as jcalc
 from forest_benchmarking_tpu.ops import superoperator_transformations as jsup
 from forest_benchmarking_tpu_torch.ops import calculational as tcalc
 from forest_benchmarking_tpu_torch.ops import superoperator_transformations as tsup
+from forest_benchmarking_tpu.ops import random_operators as jrand
 from forest_benchmarking_tpu_torch.ops.random_operators import (
-    bcsz_choi_from_ginibre, ginibre_matrix_complex, haar_rand_unitary,
-    rand_map_with_BCSZ_dist)
+    bcsz_choi_from_ginibre, bures_measure_state_matrix,
+    ginibre_matrix_complex, ginibre_state_matrix, haar_rand_state,
+    haar_rand_unitary, permute_tensor_factors, rand_map_with_BCSZ_dist)
 
 torch.set_num_threads(1)
 
@@ -128,3 +133,107 @@ def test_haar_unitary_moments_f32():
     assert abs((a2 ** 2).mean().item() - 0.1) < 2e-3
     err = (u.mH @ u - torch.eye(4, dtype=u.dtype)).abs().max().item()
     assert err < 2e-6
+
+
+@pytest.mark.parametrize("rank", [1, 2])
+def test_outer_inner_sqrtm_match_jax(rank):
+    """The products, and the PSD square root with its relative floor on a
+    rank-deficient input, on the same f64 inputs as JAX."""
+    rng = np.random.default_rng(6 + rank)
+    v1, v2 = _crandn(rng, 3, 4, 1), _crandn(rng, 3, 4, 1)
+    for name in ("outer_product", "inner_product"):
+        np.testing.assert_allclose(
+            getattr(tcalc, name)(torch.tensor(v1), torch.tensor(v2)).numpy(),
+            np.asarray(getattr(jcalc, name)(jnp.asarray(v1),
+                                            jnp.asarray(v2))), atol=ATOL)
+    x = _crandn(rng, 3, 4, rank)
+    m = x @ np.conj(np.swapaxes(x, -1, -2))
+    got = tcalc.sqrtm_psd(torch.tensor(m)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jcalc.sqrtm_psd(jnp.asarray(m))),
+                               atol=1e-12)
+    np.testing.assert_allclose(got @ got, m, atol=1e-10)
+
+
+def test_sqrtm_psd_floor_keeps_f32_pure_state_fidelity():
+    """Without the floor the f32 square root of a pure state carries
+    ~sqrt(eps) of eigh noise; with it, sqrtm(|psi><psi|) = |psi><psi|."""
+    psi = haar_rand_state(torch.Generator().manual_seed(8), 4, batch=(64,),
+                          dtype=torch.float32)
+    rho = psi @ psi.mH
+    err = (tcalc.sqrtm_psd(rho) - rho).abs().amax().item()
+    assert err < 1e-5
+
+
+def test_haar_state_normalized():
+    psi = haar_rand_state(torch.Generator().manual_seed(4), 8, batch=(100,))
+    assert psi.shape == (100, 8, 1)
+    norms = (psi.abs() ** 2).sum((1, 2)).numpy()
+    np.testing.assert_allclose(norms, 1.0, atol=1e-12)
+
+
+def test_haar_state_first_moment():
+    """E |psi><psi| = I/d for Haar-random states."""
+    psi = haar_rand_state(torch.Generator().manual_seed(2), 2,
+                          batch=(20000,))
+    avg = (psi @ psi.mH).mean(0).numpy()
+    assert np.abs(avg - np.eye(2) / 2).max() < 0.02
+
+
+@pytest.mark.parametrize("rank", [1, 2])
+def test_ginibre_state_matrix_valid(rank):
+    rho = ginibre_state_matrix(torch.Generator().manual_seed(5), 2, rank,
+                               batch=(50,)).numpy()
+    np.testing.assert_allclose(np.trace(rho, axis1=1, axis2=2), 1.0,
+                               atol=1e-12)
+    evals = np.linalg.eigvalsh(rho)
+    assert evals.min() > -1e-12
+    if rank == 1:
+        np.testing.assert_allclose(np.sort(evals, axis=1)[:, :-1], 0.0,
+                                   atol=1e-10)
+
+
+def test_ginibre_state_matrix_hilbert_schmidt_moment():
+    """Hilbert-Schmidt states on C^2: E tr(rho^2) = 2d / (d^2 + 1) = 0.8,
+    the JAX sampler's mean on its own draws within the same bar."""
+    rho = ginibre_state_matrix(torch.Generator().manual_seed(9), 2, 2,
+                               batch=(20000,))
+    want = np.asarray(jrand.ginibre_state_matrix(
+        jax.random.PRNGKey(9), 2, 2, batch=(20000,)))
+    pur = (rho @ rho).diagonal(dim1=-2, dim2=-1).sum(-1).real.mean().item()
+    pur_jax = np.trace(want @ want, axis1=1, axis2=2).real.mean()
+    assert abs(pur - 0.8) < 0.005 and abs(pur_jax - 0.8) < 0.005
+
+
+def test_ginibre_rank_exceeds_dim_raises():
+    with pytest.raises(ValueError):
+        ginibre_state_matrix(torch.Generator().manual_seed(0), 2, 3)
+
+
+def test_bures_state_valid_and_moment():
+    """Valid density matrices; the mean purity of the Bures measure is
+    E tr rho^2 = (5 d^2 + 1) / (2 d (d^2 + 2)), 7 / 8 on C^2."""
+    rho = bures_measure_state_matrix(torch.Generator().manual_seed(6), 2,
+                                     batch=(20000,))
+    r = rho.numpy()
+    np.testing.assert_allclose(np.trace(r, axis1=1, axis2=2), 1.0,
+                               atol=1e-12)
+    assert np.linalg.eigvalsh(r).min() > -1e-12
+    pur = np.trace(r @ r, axis1=1, axis2=2).real.mean()
+    assert abs(pur - 0.875) < 0.005
+
+
+@pytest.mark.parametrize("dims, perm", [(2, [1, 0]), (2, [2, 0, 1]),
+                                        ([2, 4], [1, 0]),
+                                        ([2, 3, 2], [1, 2, 0])])
+def test_permute_tensor_factors_matches_jax(dims, perm):
+    got = permute_tensor_factors(dims, perm)
+    np.testing.assert_array_equal(got, jrand.permute_tensor_factors(dims,
+                                                                    perm))
+    sizes = [dims] * len(perm) if isinstance(dims, int) else dims
+    rng = np.random.default_rng(0)
+    vs = [rng.standard_normal(k) for k in sizes]
+    lhs = functools.reduce(np.kron, vs)
+    rhs = functools.reduce(np.kron, [vs[p] for p in perm])
+    np.testing.assert_allclose(got @ lhs, rhs, atol=1e-14)
+    with pytest.raises(ValueError):
+        permute_tensor_factors([2, 2], [0, 1, 2])
