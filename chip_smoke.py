@@ -3,7 +3,8 @@
 tomography (BASELINE config 2), batched quantum volume (config 5), batched
 1Q process tomography, the per-problem process-MLE routes, the Jacobi CP
 projection, batched state tomography (config 1), batched RB decay fits
-(config 3) and channel distances with batched diamond norms (config 4).
+(config 3), channel distances with batched diamond norms (config 4) and the
+tomography protocol end to end on the port's QVM (``do_tomography``).
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
@@ -200,7 +201,42 @@ Phases, each of which must pass:
    ``method="auto"``, held to 1e-5: dnorm(I, X) = 2, depolarizing (p = 0.1,
    0.3, 0.7) against the identity = 1.5 p, and a channel against itself 0
    with no NaN (1Q and 2Q).
+17. the tomography protocol on the card, plain PyTorch but for part (c):
+   circuit -> experiment -> grouped settings -> compiled programs -> the
+   port's QVM (complex128) -> symmetrized shots -> moments -> calibration
+   -> estimate, through ``tomography.do_tomography`` at its defaults (1000
+   shots, exhaustive symmetrization, greedy grouping, calibration). With
+   every launch counter zeroed first: (a) 2Q process tomography of CZ(0, 1)
+   with 2% two-qubit depolarizing noise on CZ and readout confusion of 2%
+   (0 -> 1) and 5% (1 -> 0) per qubit: 540 settings in 324 groups and 15
+   calibration programs; every program's probabilities on the card within
+   1e-12 of the port's CPU result; the process fidelity to the true
+   channel at least 0.85 (on the CPU, ``scripts/tomography_protocol_cpu.py``:
+   the JAX package 0.925-0.968 over 8 seeds, the port 0.893-0.971 over 20).
+   (b) 3Q GHZ state tomography, same readout confusion: 27 groups of 8
+   flip patterns, fidelity in [0.95, 1.05] (JAX 0.990-1.018 over 15 seeds,
+   the port 0.985-1.022; calibrated expectations leave [-1, 1], so the
+   diluted MLE's estimate need not be positive). Each with the host clock
+   of acquisition, calibration and estimation, circuits/s, and a
+   ``torch.profiler`` pass (launches, busy time, synchronizations); no hand
+   kernel launches. (c) the fused kernel on data from circuits: the process
+   experiments of pairs (0, 1) and (2, 3) merged, acquired in one
+   ``estimate_observables`` run (4-qubit density matrices, 16 patterns) and
+   split by ``get_results_by_qubit_groups``; each pair's rows permuted into
+   (a)'s order by setting, where their A must equal (a)'s bitwise. The
+   batch is (a)'s counts before calibration, the two pairs', and (a)'s
+   calibrated counts; one call each of ``apg_fused`` with its default
+   schedule and of ``pgdb_process_estimate_batched(cp_method="pallas")``
+   with the tuned headline and parity schedules, each one launch. The
+   default schedule's first three estimates within 1e-2 relative
+   Frobenius of ``pgdb_process_estimate`` on the same results, and the
+   kernel within phase 3's bar of its plain version on them; the tuned
+   schedules' gaps and the calibrated row's are printed, not held (the
+   tuned step, and any step on negative counts, diverges on these
+   near-unitary channels, in the JAX package as here: PERF.md). CUDA-event
+   times of the kernel, its plain version and the call, with the bound.
 
+Before it, one JSON line ``{"tomography": ...}`` holds phase 17's figures.
 The second-to-last line is the per-kernel JSON record: ``launches`` from
 the main paths; ``ms``/``plain_ms``: the kernel alone and the plain version
 at the main path's size (APG: headline schedule); ``bound_ms``: the larger
@@ -222,6 +258,7 @@ is ``{"ok": true, ...}``. Exits non-zero,
 printing no result, if CUDA is unavailable or any phase fails.
 """
 import contextlib
+import functools
 import json
 import math
 import re
@@ -283,6 +320,12 @@ DIST_BATCH = 1024      # config 4 (bench_all.py:176): channel pairs
 DNORM_BATCH = 2048     # config 4: diamond norms
 GOLD_PAIRS = 64        # pairs held against the f64 dense gold
 DNORM_BAR = 1e-5       # the JAX package's on-chip bar (bench_all.py:182)
+TOMO_DEPOL = 0.02        # two-qubit depolarizing probability on CZ
+TOMO_READOUT = (0.98, 0.95)   # p(0|0), p(1|1): 2% 0->1, 5% 1->0
+PROB_BAR = 1e-12         # card against CPU probabilities, complex128
+PROCESS_FID_BAR = 0.85   # CPU: JAX 0.925-0.968 (8 seeds), port 0.893-0.971
+STATE_FID_BAR = (0.95, 1.05)  # CPU: JAX 0.990-1.018, port 0.985-1.022
+FUSED_PGDB_BAR = 1e-2    # relative Frobenius, fused against PGDB
 PEAK_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # the dim = 4 kernel with one problem per block, B = 16384, headline /
@@ -324,10 +367,11 @@ def rel_frobenius(est: torch.Tensor, truth: torch.Tensor) -> torch.Tensor:
             / torch.linalg.norm(truth, dim=(1, 2)))
 
 
-def cuda_ms(fn, reps: int = 3):
-    """(median milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
-    the last run's result)."""
-    fn()
+def cuda_ms(fn, reps: int = 3, warmup: bool = True):
+    """(median milliseconds of ``fn()`` over ``reps`` runs after one warm-up
+    (unless ``warmup`` is False), the last run's result)."""
+    if warmup:
+        fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -1025,6 +1069,304 @@ def phase_distances(card: str, dev: torch.device) -> None:
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
 
 
+def noisy_cz(circuits, noise, pair):
+    """CZ on ``pair`` with two-qubit depolarizing noise attached to it and
+    the per-qubit readout confusion of phase 17."""
+    p = TOMO_DEPOL
+    kraus = noise.pauli_kraus_map([1 - 15 * p / 16] + [p / 16] * 15)
+    prog = circuits.Circuit([circuits.CZ(*pair)])
+    prog.define_noisy_gate("CZ", list(pair), kraus)
+    for q in pair:
+        prog.define_noisy_readout(q, *TOMO_READOUT)
+    return prog, kraus
+
+
+@contextlib.contextmanager
+def stage_clock(tomography):
+    """Host seconds of the three stages of ``do_tomography`` (acquisition,
+    calibration, estimation), each through a synchronize: the module
+    attributes it calls are wrapped for the block."""
+    clock = {}
+
+    def timed(name, stage, listed):
+        real = getattr(tomography, name)
+
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            out = list(out) if listed else out
+            torch.cuda.synchronize()
+            clock[stage] = clock.get(stage, 0.0) + time.perf_counter() - t0
+            return out
+        return real, run
+
+    names = (("estimate_observables", "acquisition", True),
+             ("calibrate_observable_estimates", "calibration", True),
+             ("pgdb_process_estimate", "estimation", False),
+             ("iterative_mle_state_estimate", "estimation", False))
+    saved = {}
+    for name, stage, listed in names:
+        saved[name], wrapped = timed(name, stage, listed)
+        setattr(tomography, name, wrapped)
+    try:
+        yield clock
+    finally:
+        for name, real in saved.items():
+            setattr(tomography, name, real)
+
+
+def tomography_run(name, card, tomography, qvm, prog, qubits, kind):
+    """``do_tomography`` at its defaults on the card, timed by stage, then
+    once more under ``torch.profiler``: the whole call for a process, the
+    acquisition and calibration for a state (its diluted MLE runs up to
+    10,000 steps, one synchronization each, too many launches to gather in
+    a profile here; its steps are counted instead). Returns (estimate,
+    experiment, results, record)."""
+    steps = []
+    real_mle = tomography._mle_general_batched
+
+    def counted_mle(*args, **kwargs):
+        out = real_mle(*args, **kwargs)
+        steps.append(int(out[1].max()))
+        return out
+
+    tomography._mle_general_batched = counted_mle
+    try:
+        with stage_clock(tomography) as clock:
+            t0 = time.perf_counter()
+            est, expt, results = tomography.do_tomography(qvm, prog, qubits,
+                                                          kind)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        tomography._mle_general_batched = real_mle
+    n_cal = len({r.setting.observable.operations_as_set() for r in results})
+    circuits = len(expt) + n_cal
+
+    def acquire():
+        res = list(tomography.estimate_observables(qvm, expt, num_shots=1000,
+                                                   symm_type=-1))
+        return list(tomography.calibrate_observable_estimates(
+            qvm, res, num_shots=1000, symm_type=-1, noisy_program=prog))
+
+    launches, busy, syncs, top, _ = profiled(
+        (lambda: tomography.do_tomography(qvm, prog, qubits, kind))
+        if kind == "process" else acquire)
+    what = "the whole call" if kind == "process" else (
+        f"acquisition and calibration; the estimation ran {steps} MLE steps")
+    rec = dict(groups=len(expt), results=len(results),
+               calibration_programs=n_cal, host_s=wall,
+               circuits_per_s=circuits / (clock["acquisition"]
+                                          + clock["calibration"]),
+               launches=launches, busy_ms=busy, syncs=syncs, profiled=what,
+               **{f"{k}_s": v for k, v in clock.items()})
+    print(f"timing {name}: {len(expt)} groups + {n_cal} calibration "
+          f"programs, 1000 shots each; host clock {wall:.3f} s (acquisition "
+          f"{clock['acquisition']:.3f} s, calibration "
+          f"{clock['calibration']:.3f} s, estimation "
+          f"{clock['estimation']:.3f} s), {rec['circuits_per_s']:.1f} "
+          f"circuits/s; profiled ({what}): {launches} device launches, busy "
+          f"{busy:.3f} ms, {syncs} synchronizations on {card}")
+    print_top(top)
+    return est, expt, results, rec
+
+
+def setting_key(result, qubits):
+    """A setting with its qubits renamed to their positions in ``qubits``."""
+    pos = {q: i for i, q in enumerate(qubits)}
+    states = tuple(sorted((pos[s.qubit], s.label, s.index)
+                          for s in result.setting.in_state.states))
+    ops = tuple(sorted((pos[q], op) for q, op in result.setting.observable))
+    return states, ops
+
+
+def phase_tomography(card: str, dev: torch.device) -> dict:
+    """17. The tomography protocol on the card; see the module docstring."""
+    t_phase = time.perf_counter()
+    from forest_benchmarking_tpu_torch import circuits, tomography
+    from forest_benchmarking_tpu_torch import distance_measures as dm
+    from forest_benchmarking_tpu_torch.benchmarks import inputs_from_numpy
+    from forest_benchmarking_tpu_torch.observable_estimation import (
+        estimate_observables, generate_experiment_programs,
+        get_calibration_program, get_results_by_qubit_groups,
+        merge_disjoint_experiments)
+    from forest_benchmarking_tpu_torch.ops import lanes_apg
+    from forest_benchmarking_tpu_torch.ops.superoperator_transformations \
+        import choi2pauli_liouville, kraus2choi
+    from forest_benchmarking_tpu_torch.sim import QVM, noise
+    record = {}
+    counters = port_launches()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+
+    # (a) 2Q process tomography of a noisy CZ, do_tomography's defaults
+    prog, kraus = noisy_cz(circuits, noise, (0, 1))
+    qvm = QVM(seed=SEED + 17, device=dev)
+    est, expt, res_a, rec = tomography_run(
+        "process tomography 2Q", card, tomography, qvm, prog, [0, 1],
+        "process")
+    truth = kraus2choi(torch.tensor(np.stack(noise.append_kraus_to_gate(
+        kraus, circuits.gate_matrix("CZ"))), device=dev))
+    fid = dm.process_fidelity(choi2pauli_liouville(truth),
+                              choi2pauli_liouville(est)).item()
+    programs, meas = generate_experiment_programs(expt)
+    obs = {r.setting.observable.copy(coefficient=1.0) for r in res_a}
+    programs += [get_calibration_program(o, prog) for o in obs]
+    meas += [o.get_qubits() for o in obs]
+    cpu = QVM(device="cpu")
+    prob_err = max(
+        (qvm.probabilities(p, m).cpu() - cpu.probabilities(p, m)).abs().max()
+        .item() for p, m in zip(programs, meas))
+    print(f"main path process tomography 2Q: CZ with {TOMO_DEPOL} "
+          f"depolarizing, readout {TOMO_READOUT}; {len(res_a)} settings in "
+          f"{len(expt)} groups; process fidelity to the true channel "
+          f"{fid:.6f} (bar >= {PROCESS_FID_BAR}); {len(programs)} programs, "
+          f"max |card - CPU| probability {prob_err:.3e} (bar {PROB_BAR})")
+    check(len(res_a) == 540 and len(programs) == len(expt) + 15,
+          f"process tomography: {len(res_a)} results, {len(programs)} "
+          "programs")
+    check(est.shape == (16, 16) and bool(torch.isfinite(est).all()),
+          "process tomography: estimate not finite or of the wrong shape")
+    check(fid >= PROCESS_FID_BAR, f"process fidelity {fid}")
+    check(prob_err <= PROB_BAR, f"card against CPU probabilities {prob_err}")
+    record["process_2q"] = dict(rec, fidelity=fid, max_prob_err=prob_err,
+                                part_s=time.perf_counter() - t_phase)
+    t_part = time.perf_counter()
+
+    # (b) 3Q GHZ state tomography
+    ghz = circuits.Circuit([circuits.H(0), circuits.CNOT(0, 1),
+                            circuits.CNOT(1, 2)])
+    for q in range(3):
+        ghz.define_noisy_readout(q, *TOMO_READOUT)
+    rho, expt_b, res_b, rec = tomography_run(
+        "state tomography 3Q GHZ", card, tomography, qvm, ghz, [0, 1, 2],
+        "state")
+    psi = torch.zeros(8, dtype=rho.dtype, device=dev)
+    psi[0] = psi[7] = 2 ** -0.5
+    fid_b = dm.fidelity(torch.outer(psi, psi.conj()), rho).item()
+    print(f"main path state tomography 3Q GHZ: {len(res_b)} settings in "
+          f"{len(expt_b)} groups of 8 flip patterns; fidelity to GHZ "
+          f"{fid_b:.6f} (bar {STATE_FID_BAR})")
+    check(len(expt_b) == 27 and rho.shape == (8, 8)
+          and bool(torch.isfinite(rho).all()), "state tomography: shape")
+    check(STATE_FID_BAR[0] <= fid_b <= STATE_FID_BAR[1],
+          f"state fidelity {fid_b}")
+    record["state_3q"] = dict(rec, fidelity=fid_b,
+                              part_s=time.perf_counter() - t_part)
+    t_part = time.perf_counter()
+    hand = [c.launches for c in counters]
+    check(sum(hand) == 0, f"do_tomography launched hand kernels {hand}")
+
+    # (c) the fused kernel on data from circuits: two disjoint pairs in one
+    # acquisition, stacked with (a)'s counts
+    pairs = ((0, 1), (2, 3))
+    expts = [tomography.generate_process_tomography_experiment(
+        noisy_cz(circuits, noise, p)[0], list(p)) for p in pairs]
+    t0 = time.perf_counter()
+    merged = merge_disjoint_experiments(expts)
+    res_c = list(estimate_observables(qvm, merged, num_shots=1000,
+                                      symm_type=-1))
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    by_pair = get_results_by_qubit_groups(res_c, pairs)
+    # (a)'s results before calibration: a calibrated expectation past +-1
+    # makes a negative count, on which the fused solver diverges (its
+    # calibrated counts go in last, printed and not held)
+    raw_a = [tomography.ExperimentResult(
+        setting=r.setting, expectation=r.raw_expectation,
+        std_err=r.raw_std_err, total_counts=r.total_counts) for r in res_a]
+    a_np, n_raw = tomography._extract_from_results(raw_a, [0, 1])
+    n_cal = tomography._extract_from_results(res_a, [0, 1])[1]
+    order = {setting_key(r, [0, 1]): i for i, r in enumerate(res_a)}
+    ns, same_a = [n_raw], True
+    for p in pairs:
+        a_p, n_p = tomography._extract_from_results(by_pair[p], list(p))
+        idx = np.empty(len(res_a), dtype=np.int64)
+        for i, r in enumerate(by_pair[p]):
+            idx[order[setting_key(r, list(p))]] = i
+        rows = np.stack([2 * idx, 2 * idx + 1], axis=1).reshape(-1)
+        same_a &= np.array_equal(a_p[rows], a_np)
+        ns.append(n_p[rows])
+    print(f"main path fused from circuits: pairs {pairs} merged into "
+          f"{len(merged)} groups (4-qubit density matrices, 16 patterns), "
+          f"{len(res_c)} results in {wall_c:.3f} s host clock; rows permuted "
+          f"into (a)'s order, A bitwise equal: {same_a}")
+    check(same_a and all(len(by_pair[p]) == 540 for p in pairs),
+          "fused from circuits: the pairs' A do not match (a)'s by setting")
+    n_np = np.stack(ns + [n_cal])
+    a = torch.tensor(a_np, dtype=torch.complex64, device=dev)
+    n = torch.tensor(n_np, dtype=torch.float32, device=dev)
+    # the default schedule (apg_fused's own: PARITY_PHASES, step 1/mu =
+    # 2 d^2 / 3) and the two tuned dim = 4 schedules of
+    # pgdb_process_estimate_batched, one batched call each
+    calls = {"default": lambda: lanes_apg.apg_fused(a, n, 4)}
+    for name in SCHEDULES:
+        calls[name] = functools.partial(
+            tomography.pgdb_process_estimate_batched, a, n, dim=4,
+            method="apg", cp_method="pallas", fused_schedule=name)
+    fused, moved = {}, {}
+    for name, call in calls.items():
+        before = lanes_apg.apg_fused.launches
+        fused[name] = call()
+        torch.cuda.synchronize()
+        moved[name] = lanes_apg.apg_fused.launches - before
+    launches = lanes_apg.apg_fused.launches
+    t0 = time.perf_counter()
+    pgdb = torch.stack([tomography.pgdb_process_estimate(r, q, device=dev)
+                        for r, q in ((raw_a, [0, 1]), (by_pair[pairs[0]],
+                                                       list(pairs[0])),
+                                     (by_pair[pairs[1]], list(pairs[1])))]
+                       + [est])
+    torch.cuda.synchronize()
+    wall_pgdb = time.perf_counter() - t0
+    gaps = {name: rel_frobenius(est.to(pgdb.dtype), pgdb).tolist()
+            for name, est in fused.items()}
+    for name in calls:
+        print(f"fused {name} from circuits: {moved[name]} launch(es); max "
+              f"|estimate| {fused[name].abs().max().item():.4g}; rel "
+              f"Frobenius to pgdb_process_estimate (complex128, "
+              f"{wall_pgdb:.3f} s for the three) of (a) before calibration, "
+              f"the two pairs, and (a) calibrated: "
+              + ", ".join(f"{g:.3e}" for g in gaps[name])
+              + (f" (bar {FUSED_PGDB_BAR} on the first three)"
+                 if name == "default" else
+                 " (printed, not held: the tuned step diverges on "
+                 "near-unitary channels, in the JAX package as here)"))
+        check(moved[name] == 1, f"{name}: {moved[name]} launches, want 1")
+    check(max(gaps["default"][:3]) <= FUSED_PGDB_BAR,
+          f"default schedule: fused {max(gaps['default'][:3]):.3e} from PGDB")
+    # the kernel against its plain version on the three uncalibrated rows
+    in32 = inputs_from_numpy(a_np, n_np[:3], device=dev)
+    in64 = inputs_from_numpy(a_np, n_np[:3], device=dev, dtype=torch.float64)
+    kern = lanes_apg.apg_fused(in32.a, in32.n, 4, a_pinv=in32.a_pinv)
+    rho0 = lanes_apg.linear_inversion_start(in32.a_pinv, in32.n, 4)
+    # the plain version takes seconds here (thousands of small launches):
+    # one timed run, whose output the check below reuses
+    ms_p, plain32 = cuda_ms(lambda: torch.complex(
+        *lanes_apg.apg_fused_reference(in32.ar, in32.ai, in32.n, *rho0,
+                                       dim=4)), reps=1, warmup=False)
+    err = against_plain(lanes_apg, "default from circuits", kern, in32, in64,
+                        in32.n, {}, plain32=plain32)
+    ms_k, _ = cuda_ms(lambda: lanes_apg.apg_fused_kernel(
+        in32.ar, in32.ai, in32.n, *rho0, dim=4))
+    ms_l, _ = cuda_ms(calls["default"])
+    bound = bound_ms(3 * lanes_apg.apg_fused_flops_per_solve(
+        a_np.shape[0], 4), nbytes(in32.ar, in32.ai, in32.n, *rho0, *rho0))
+    print(f"timing fused default from circuits: B=3 (the uncalibrated rows) "
+          f"kernel {ms_k:.3f} ms, "
+          f"plain {ms_p:.3f} ms, the batched call (pinv and warm start "
+          f"included, B=4) {ms_l:.3f} ms; bound {bound[0]:.4f} ms ({bound[1]}), "
+          f"{100 * bound[0] / ms_k:.2f}% of it on {card}")
+    record["fused_from_circuits"] = dict(
+        launches=launches, launches_per_call=moved, max_abs_err=err,
+        rel_frobenius_to_pgdb=gaps, ms=ms_k, plain_ms=ms_p, call_ms=ms_l,
+        bound_ms=bound[0], bound_by=bound[1], acquisition_s=wall_c,
+        pgdb_s=wall_pgdb, part_s=time.perf_counter() - t_part)
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return record
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1696,6 +2038,10 @@ def main() -> int:
     # 16. BASELINE config 4 (plain torch: no TPU kernel on this path)
     phase_distances(card, dev)
 
+    # 17. the tomography protocol on the card (the fused kernel on data
+    # from circuits in its part (c))
+    tomo_record = phase_tomography(card, dev)
+
     def record(name, source, replaces, launch_count, err, ms_k, ms_p, bound,
                library_ms=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -1707,6 +2053,7 @@ def main() -> int:
     qv_src = "forest_benchmarking_tpu_torch/csrc/qv_traj.cu"
     apg_src = "forest_benchmarking_tpu_torch/csrc/apg_fused.cu"
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"tomography": tomo_record}))
     print(json.dumps({"kernels": [
         record("apg_fused", apg_src,
                "forest_benchmarking_tpu/ops/lanes_apg.py:674", launches,

@@ -50,6 +50,21 @@ and ``ops.random_operators``, ``proj_choi_to_unitary``, and
 ``ops.channel_approximation``, ``ops.validate_operator`` and
 ``ops.validate_superoperator``.
 
+Slice 11 covers the tomography protocol end to end, plain PyTorch: the
+experiment data model (``circuits``, ``paulis``, ``compilation``,
+``observable_estimation`` and the rest of ``utils``), the simulator
+``sim`` (statevector and density-matrix evolution with Kraus noise, T1/T2
+at DELAY and readout confusion; the structure-keyed executor; the ``QVM``
+with exhaustive and orthogonal-array readout symmetrization, all flip
+patterns in one batched call) and ``tomography.do_tomography`` with the
+results-level estimators. ``QVM()`` runs on the card; pass
+``QVM(device="cpu")`` without one. ``do_tomography(qc, ...)`` and
+``estimate_observables(qc, ...)`` run where ``qc`` runs; the results-level
+estimators take ``device`` (the card by default). The optional packages
+``networkx`` (clique-removal grouping), ``pandas`` (``metadata_save``) and
+``tqdm`` (progress bars) are imported only where they are used; the
+default greedy grouping needs none of them.
+
 The package imports neither JAX nor the JAX package: it keeps its own
 copies of the host helpers it needs. The quantum-volume entry points run on
 the card unless the caller passes ``device="cpu"``; the process-tomography

@@ -21,9 +21,9 @@ from forest_benchmarking_tpu_torch.ops.lanes_apg import (
 from forest_benchmarking_tpu_torch.ops.random_operators import (
     rand_map_with_BCSZ_dist)
 from forest_benchmarking_tpu_torch.ops.superoperator_transformations import vec
+from forest_benchmarking_tpu_torch.paulis import pauli_term_to_matrix
 from forest_benchmarking_tpu_torch.tomography import (
     _pauli_process_tomo_settings, pgdb_a_row_pair, state_to_density)
-from forest_benchmarking_tpu_torch.utils import pauli_string_to_matrix
 
 __all__ = ["process_tomo_A_matrix", "synth_process_datasets",
            "split_complex", "join_complex", "SolveInputs", "inputs_from_numpy",
@@ -48,12 +48,14 @@ def process_tomo_A_matrix(n_qubits: int) -> np.ndarray:
     (input eigenstate, observable) setting; p = A vec(choi) gives outcome
     probabilities. Host numpy, cached; treat the result as read-only.
     """
+    qubits = list(range(n_qubits))
     dim = 2 ** n_qubits
     eye = np.eye(dim)
     rows = []
-    for states, obs in _pauli_process_tomo_settings(n_qubits):
-        in_mat = state_to_density(states)
-        op = pauli_string_to_matrix(obs)
+    for setting in _pauli_process_tomo_settings(qubits):
+        in_mat = state_to_density(setting.in_state, qubits)
+        op = pauli_term_to_matrix(setting.observable.copy(coefficient=1.0),
+                                  qubits)
         rows.extend(pgdb_a_row_pair(in_mat, op, eye))
     return np.stack(rows) / dim ** 2
 

@@ -493,9 +493,10 @@ def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,
               init_iters: int = 8, init_sweeps: int = 3,
               final_iters: int = 20, final_sweeps: int = 1,
               final_sweeps_rest: Optional[int] = None,
+              block: int = 128, use_pallas: bool = True,
               mu: Optional[float] = None,
               a_pinv: Optional[torch.Tensor] = None,
-              use_pallas: bool = True) -> torch.Tensor:
+              sublanes: Optional[int] = None) -> torch.Tensor:
     """Fused-APG batched PGDB MLE: (R, d4) complex A-matrix (vec order),
     (B, R) counts -> (B, d2, d2) complex Choi estimates.
 
@@ -508,6 +509,9 @@ def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,
     card included, at any dtype and dim; with the default, CUDA inputs the
     kernel does not take raise. ``a_pinv`` ((d4, R), optional) is a
     precomputed ``pinv(A)``; production callers compute it once per A-matrix.
+    ``block`` and ``sublanes`` (the JAX package's TPU tile sizes) are taken
+    at the JAX package's positions and change nothing: the CUDA kernel's
+    layout is fixed.
 
     ``apg_fused.launches`` counts the kernel launches.
     """

@@ -69,11 +69,13 @@ def cp_project_flops(sweeps: int = 6) -> float:
     return sweeps * 36.0 * N * N * (N - 1) + 8.0 * N ** 3
 
 
-def cp_project_pallas(h: torch.Tensor, sweeps: int = 6,
+def cp_project_pallas(h: torch.Tensor, sweeps: int = 6, block: int = 128,
                       use_pallas: bool = True) -> torch.Tensor:
     """CP projection (positive part) of a batch of 16x16 Hermitian matrices.
 
     :param h: (B, 16, 16) complex tensor, read as given (not hermitianized).
+    :param block: the JAX package's TPU batch tile, taken at its position;
+        it changes nothing (the kernel runs one warp per matrix).
     :param use_pallas: False runs :func:`cp_project_reference` wherever
         ``h`` lies, the card included, at any complex dtype.
     :return: (B, 16, 16) positive parts, same dtype and device.

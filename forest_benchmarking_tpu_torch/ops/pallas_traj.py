@@ -46,7 +46,8 @@ from forest_benchmarking_tpu_torch.sim.statevector import apply_gate_matrix
 __all__ = ["traj_probs_reference", "traj_probs_kernel", "traj_probs",
            "ideal_probs_reference", "ideal_probs_kernel", "ideal_probs",
            "traj_flops_per_circuit", "ideal_circuits_per_warp", "MIN_DEPTH",
-           "MAX_DEPTH", "MAX_KRAUS", "IDEAL_WARPS"]
+           "MAX_DEPTH", "MAX_KRAUS", "IDEAL_WARPS", "supports_pallas_traj",
+           "traj_probs_pallas", "ideal_probs_pallas"]
 
 MIN_DEPTH, MAX_DEPTH = 2, 10   # depths the CUDA kernels take (QV_*_DEPTH)
 MAX_KRAUS = 32                 # one warp lane per Kraus operator (QV_MAX_KRAUS)
@@ -362,6 +363,54 @@ def traj_probs(perms: torch.Tensor, gates: torch.Tensor, kraus: torch.Tensor,
 
 
 traj_probs.launches = 0
+
+
+# ----------------------------------------------------------------------
+# The JAX package's entry points, on (2, ...) real/imaginary planes
+# ----------------------------------------------------------------------
+
+def supports_pallas_traj(depth: int) -> bool:
+    """Whether the CUDA kernels take circuits of ``depth``: ``MIN_DEPTH``
+    to ``MAX_DEPTH``, the rule ``quantum_volume._use_kernels`` applies on
+    the card (the JAX package's TPU kernels start at depth 7)."""
+    return MIN_DEPTH <= depth <= MAX_DEPTH
+
+
+def _join_planes(ri: torch.Tensor) -> torch.Tensor:
+    """(2, ...) real and imaginary planes -> the complex tensor of their
+    precision (float32 planes give complex64, the kernels' dtype)."""
+    ri = torch.as_tensor(ri)
+    return torch.complex(ri[0], ri[1])
+
+
+def traj_probs_pallas(perms: torch.Tensor, gates_ri: torch.Tensor,
+                      kraus_ri: torch.Tensor, uniforms: torch.Tensor,
+                      depth: int, interpret: bool = False) -> torch.Tensor:
+    """:func:`traj_probs` with the JAX package's signature: (2, C, depth,
+    depth//2, 4, 4) gate planes and (2, K, 4, 4) Kraus planes -> (C,
+    2^depth, T) probabilities. ``interpret=True`` runs the plain version
+    :func:`traj_probs_reference` wherever the tensors lie; otherwise it
+    dispatches as :func:`traj_probs` does (the kernel on the card, which
+    takes float32 planes, the plain version on the CPU)."""
+    gates, kraus = _join_planes(gates_ri), _join_planes(kraus_ri)
+    if interpret:
+        return traj_probs_reference(perms, gates, kraus, uniforms, depth)
+    return traj_probs(perms, gates, kraus, uniforms, depth)
+
+
+def ideal_probs_pallas(perms: torch.Tensor, gates_ri: torch.Tensor,
+                       depth: int, interpret: bool = False,
+                       perm_split3: bool = True) -> torch.Tensor:
+    """:func:`ideal_probs` with the JAX package's signature: (2, C, depth,
+    depth//2, 4, 4) gate planes -> (C, 2^depth) probabilities.
+    ``interpret=True`` runs :func:`ideal_probs_reference` wherever the
+    tensors lie; otherwise it dispatches as :func:`ideal_probs` does.
+    ``perm_split3`` (a TPU matmul split of the boundary permutations) is
+    taken and changes nothing: the permutations are gathers here."""
+    gates = _join_planes(gates_ri)
+    if interpret:
+        return ideal_probs_reference(perms, gates, depth)
+    return ideal_probs(perms, gates, depth)
 
 
 def traj_flops_per_circuit(depth: int, n_kraus: int = 16,

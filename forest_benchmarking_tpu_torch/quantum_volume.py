@@ -167,8 +167,7 @@ def _use_kernels(depth: int, device: torch.device) -> bool:
     moves. The port's counterpart of the JAX package's
     ``_pallas_qv_routing``, which sends the depths its kernels do not take
     (below 7 there) to the plain simulator."""
-    return (device.type == "cuda"
-            and pallas_traj.MIN_DEPTH <= depth <= pallas_traj.MAX_DEPTH)
+    return device.type == "cuda" and pallas_traj.supports_pallas_traj(depth)
 
 
 def _heavy_outputs(probs: torch.Tensor) -> torch.Tensor:

@@ -3,9 +3,10 @@
 Port of the fit half of ``forest_benchmarking_tpu/qubit_spectroscopy.py``:
 T1, T2 (Ramsey / echo), Rabi and CZ phase-Ramsey fits of Pauli expectation
 series on the batched fitter of :mod:`.analysis.fitting`. Experiment
-generation and ``do_t1_or_t2`` need the circuit data model and the QVM
-(ROADMAP.md queue 1, items 13a and 13c). The fits take numpy arrays or
-lists and run on the card unless called with ``device="cpu"``.
+generation and ``do_t1_or_t2`` wait for ROADMAP.md queue 1, item 10 (the
+circuit data model and the QVM they run on are ported). The fits take
+numpy arrays or lists and run on the card unless called with
+``device="cpu"``.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ and unitarity decay fits (on the batched fitter of
 ``unitary_to_ptm_np`` and the batched PTM-composition survival simulator
 :func:`simulate_rb_survival_batched`. Sequence generation,
 ``circuit_unitary_np``, ``sequences_to_ptm_stack`` and ``do_rb`` need the
-circuit data model and wait for ROADMAP.md queue 1, item 13a.
+Clifford group (``clifford.py``) and wait for ROADMAP.md queue 1, item 10.
 
 The fits and the simulator take numpy arrays or lists and run on the card
 unless called with ``device="cpu"``; the simulator takes tensors where they

@@ -1,7 +1,7 @@
-"""Noise-channel constructors (numpy).
+"""Noise-channel constructors (numpy): the Pauli, depolarizing, bit-flip,
+amplitude-damping and dephasing Kraus sets, and ``append_kraus_to_gate``.
 
-Port of the subset of ``forest_benchmarking_tpu/sim/noise.py`` that the
-port uses: the Pauli-channel Kraus sets.
+Port of ``forest_benchmarking_tpu/sim/noise.py``, with its public names.
 """
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ import numpy as np
 
 from forest_benchmarking_tpu_torch.utils import pauli_basis_matrices
 
-__all__ = ["pauli_kraus_map", "depolarizing_kraus_map"]
+__all__ = ["pauli_kraus_map", "damping_kraus_map", "dephasing_kraus_map",
+           "depolarizing_kraus_map", "bit_flip_kraus_map", "append_kraus_to_gate"]
 
 
 def pauli_kraus_map(probabilities: Sequence[float]) -> List[np.ndarray]:
@@ -27,6 +28,29 @@ def pauli_kraus_map(probabilities: Sequence[float]) -> List[np.ndarray]:
     return [np.sqrt(p) * P for p, P in zip(probabilities, paulis)]
 
 
+def damping_kraus_map(p: float = 0.1) -> List[np.ndarray]:
+    """Amplitude damping with damping probability p."""
+    return [np.array([[1, 0], [0, np.sqrt(1 - p)]], dtype=complex),
+            np.array([[0, np.sqrt(p)], [0, 0]], dtype=complex)]
+
+
+def dephasing_kraus_map(p: float = 0.1) -> List[np.ndarray]:
+    """Phase flip with probability p."""
+    return [np.sqrt(1 - p) * np.eye(2, dtype=complex),
+            np.sqrt(p) * np.diag([1, -1]).astype(complex)]
+
+
 def depolarizing_kraus_map(p: float = 0.1) -> List[np.ndarray]:
     """Single-qubit depolarizing: I w.p. 1-3p/4, X/Y/Z w.p. p/4 each."""
     return pauli_kraus_map([1 - 3 * p / 4, p / 4, p / 4, p / 4])
+
+
+def bit_flip_kraus_map(p: float = 0.1) -> List[np.ndarray]:
+    """Bit flip with probability p."""
+    return pauli_kraus_map([1 - p, p, 0, 0])
+
+
+def append_kraus_to_gate(kraus_ops: Sequence[np.ndarray],
+                         gate_matrix: np.ndarray) -> List[np.ndarray]:
+    """Kraus set of (noise after gate): K_i @ U."""
+    return [np.asarray(k) @ np.asarray(gate_matrix) for k in kraus_ops]

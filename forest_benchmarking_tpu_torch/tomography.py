@@ -1,21 +1,29 @@
-"""State and process tomography at the array level: batched diluted MLE of
-states, and the batched PGDB/APG maximum-likelihood routes of processes.
+"""State and process tomography: the experiments, the results-level
+estimators, ``do_tomography``, and the batched array-level routes.
 
-Port of the array-level half of ``forest_benchmarking_tpu/tomography.py``:
+Port of ``forest_benchmarking_tpu/tomography.py``, with its public names:
 
-- state tomography: :func:`iterative_mle_state_estimate_batched` with its
-  two routes, the general diluted-MLE loop :func:`_mle_general_batched`
-  (with the MaxEnt and hedged variants and the projected linear-inversion
-  warm start) and the closed-form one-qubit update on Bloch vectors
+- experiments: :func:`generate_state_tomography_experiment` and
+  :func:`generate_process_tomography_experiment` (Pauli or SIC inputs),
+  over the data model of :mod:`.observable_estimation`;
+- the results level, which takes a list of ``ExperimentResult``:
+  :func:`linear_inv_state_estimate`, :func:`iterative_mle_state_estimate`,
+  :func:`state_log_likelihood`, :func:`estimate_variance`,
+  :func:`linear_inv_process_estimate`, :func:`pgdb_process_estimate` and
+  :func:`do_tomography`, which acquires the data on the port's QVM and
+  estimates where the QVM runs. The host-side bridges
+  (:func:`state_to_density`, ``_extract_from_results``) are numpy; the
+  estimators run in complex128 on ``device``, the card by default;
+- state tomography at the array level:
+  :func:`iterative_mle_state_estimate_batched` with its two routes, the
+  general diluted-MLE loop :func:`_mle_general_batched` (with the MaxEnt
+  and hedged variants and the projected linear-inversion warm start) and
+  the closed-form one-qubit update on Bloch vectors
   :func:`_mle_bloch_kernel`; and ``bloch_to_density``,
   ``mle_bloch_flops_per_solve`` and ``_is_xyz_pauli_stack``;
-- process tomography: the host-side helpers that build the PGDB A-matrix
-  rows from the Pauli process-tomography settings (pure numpy; the six
-  +-X/Y/Z eigenstate densities come from the same rotation matrices,
-  applied in the same order, as ``observable_estimation._one_q_state_prep``
-  in the JAX package); the per-problem solvers :func:`_pgdb_kernel`
-  (projected gradient with backtracking) and :func:`_apg_kernel` (FISTA with
-  function restart), each projecting with
+- process tomography at the array level: the per-problem solvers
+  :func:`_pgdb_kernel` (projected gradient with backtracking) and
+  :func:`_apg_kernel` (FISTA with function restart), each projecting with
   :func:`~forest_benchmarking_tpu_torch.ops.project_superoperators.proj_choi_to_physical`;
   and :func:`pgdb_process_estimate_batched`, which routes to them or to the
   fused solver :func:`~forest_benchmarking_tpu_torch.ops.lanes_apg.apg_fused`
@@ -30,12 +38,6 @@ synchronization per iteration on the card). The Bloch update instead runs
 the whole batch and freezes the problems that have converged, reading
 whether any is still going once per chunk of eight iterations.
 
-The results-level API (``linear_inv_state_estimate``,
-``iterative_mle_state_estimate``, ``state_log_likelihood``,
-``estimate_variance``, ``pgdb_process_estimate``,
-``linear_inv_process_estimate``, ``_extract_from_results``) needs the
-experiment data model and waits for ROADMAP.md queue 1, item 13a.
-
 Conventions: column-stacking vec; the first qubit is the left-most tensor
 factor.
 """
@@ -44,12 +46,20 @@ from __future__ import annotations
 import functools
 import itertools
 import math
-from math import pi
-from typing import Iterator, Optional, Sequence, Tuple, Union
+from operator import mul
+from typing import (Callable, Iterator, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
+from forest_benchmarking_tpu_torch import distance_measures as dm
+from forest_benchmarking_tpu_torch.circuits import Circuit
+from forest_benchmarking_tpu_torch.observable_estimation import (
+    ExperimentResult, ExperimentSetting, ObservablesExperiment,
+    TensorProductState, _OneQState, SIC0, SIC1, SIC2, SIC3, plusX, minusX,
+    plusY, minusY, plusZ, minusZ, zeros_state, group_settings,
+    estimate_observables, calibrate_observable_estimates, _one_q_state_prep)
 from forest_benchmarking_tpu_torch.ops.calculational import dag, pinv
 from forest_benchmarking_tpu_torch.ops.lanes_apg import full_f32_matmul
 from forest_benchmarking_tpu_torch.ops.project_state_matrix import (
@@ -58,61 +68,129 @@ from forest_benchmarking_tpu_torch.ops.project_superoperators import (
     proj_choi_to_physical)
 from forest_benchmarking_tpu_torch.ops.superoperator_transformations import (
     unvec, vec)
+from forest_benchmarking_tpu_torch.paulis import (
+    all_traceless_pauli_terms, pauli_term_to_matrix)
 from forest_benchmarking_tpu_torch.utils import (
-    all_traceless_pauli_strings, entry_device, pauli_basis_matrices)
+    entry_device, pauli_basis_matrices)
 
-__all__ = ["state_to_density", "iterative_mle_state_estimate_batched",
-           "bloch_to_density", "mle_bloch_flops_per_solve",
-           "pgdb_a_row_pair", "pgdb_process_estimate_batched"]
+__all__ = [
+    "generate_state_tomography_experiment", "generate_process_tomography_experiment",
+    "state_to_density", "linear_inv_state_estimate", "iterative_mle_state_estimate",
+    "iterative_mle_state_estimate_batched", "state_log_likelihood",
+    "estimate_variance", "linear_inv_process_estimate", "pgdb_process_estimate",
+    "pgdb_process_estimate_batched", "do_tomography", "FRO",
+    "bloch_to_density", "mle_bloch_flops_per_solve", "pgdb_a_row_pair",
+]
 
-# The Pauli-eigenstate inputs of process tomography, as (Pauli, index) with
-# index 0 the +1 eigenstate: plusX, minusX, plusY, minusY, plusZ, minusZ.
-_EIGENSTATES: Tuple[Tuple[str, int], ...] = (
-    ("X", 0), ("X", 1), ("Y", 0), ("Y", 1), ("Z", 0), ("Z", 1))
-
-
-def _rx(theta: float) -> np.ndarray:
-    c, s = np.cos(theta / 2), np.sin(theta / 2)
-    return np.array([[c, -1j * s], [-1j * s, c]], dtype=complex)
-
-
-def _ry(theta: float) -> np.ndarray:
-    c, s = np.cos(theta / 2), np.sin(theta / 2)
-    return np.array([[c, -s], [s, c]], dtype=complex)
+MAXITER = "maxiter"
+OPTIMAL = "optimal"
+FRO = "fro"  # Frobenius-norm ord string
 
 
-# preparation rotations of each eigenstate from |0>, applied in order
-_PREPS = {("X", 0): (_ry(pi / 2),), ("X", 1): (_ry(-pi / 2),),
-          ("Y", 0): (_rx(-pi / 2),), ("Y", 1): (_rx(pi / 2),),
-          ("Z", 0): (), ("Z", 1): (_rx(pi),)}
+# ======================================================================
+# Experiment generation
+# ======================================================================
+
+def _state_tomo_settings(qubits: Sequence[int]) -> Iterator[ExperimentSetting]:
+    """Settings over every non-identity Pauli observable on the qubits."""
+    for obs in all_traceless_pauli_terms(qubits):
+        yield ExperimentSetting(in_state=zeros_state(qubits), observable=obs)
 
 
-def _pauli_process_tomo_settings(n_qubits: int
-                                 ) -> Iterator[Tuple[Tuple[Tuple[str, int], ...], str]]:
-    """(input eigenstates, observable) pairs: +-XYZ eigenstate inputs on
-    every qubit x all non-identity Pauli observables, in the JAX package's
-    order."""
-    for states in itertools.product(_EIGENSTATES, repeat=n_qubits):
-        for obs in all_traceless_pauli_strings(n_qubits):
-            yield states, obs
+def generate_state_tomography_experiment(program: Circuit, qubits: List[int]) \
+        -> ObservablesExperiment:
+    """Experiment characterizing the state prepared by ``program``."""
+    return ObservablesExperiment(settings=list(_state_tomo_settings(qubits)),
+                                 program=program)
 
+
+def _sic_process_tomo_settings(qubits: Sequence[int]) -> Iterator[ExperimentSetting]:
+    """SIC-basis input states x all non-identity Pauli observables."""
+    for in_sics in itertools.product([SIC0, SIC1, SIC2, SIC3], repeat=len(qubits)):
+        i_state = functools.reduce(mul, (state(q) for state, q in zip(in_sics, qubits)),
+                                   TensorProductState())
+        for obs in all_traceless_pauli_terms(qubits):
+            yield ExperimentSetting(in_state=i_state, observable=obs)
+
+
+def _pauli_process_tomo_settings(qubits: Sequence[int]) -> Iterator[ExperimentSetting]:
+    """+-XYZ eigenstate inputs x all non-identity Pauli observables."""
+    for states in itertools.product([plusX, minusX, plusY, minusY, plusZ, minusZ],
+                                    repeat=len(qubits)):
+        i_state = functools.reduce(mul, (state(q) for state, q in zip(states, qubits)),
+                                   TensorProductState())
+        for obs in all_traceless_pauli_terms(qubits):
+            yield ExperimentSetting(in_state=i_state, observable=obs)
+
+
+def generate_process_tomography_experiment(program: Circuit, qubits: List[int],
+                                           in_basis: str = "pauli") \
+        -> ObservablesExperiment:
+    """Experiment characterizing the process enacted by ``program``."""
+    if in_basis.upper() == "SIC":
+        func = _sic_process_tomo_settings
+    elif in_basis.upper() == "PAULI":
+        func = _pauli_process_tomo_settings
+    else:
+        raise ValueError(f"Unknown basis {in_basis}")
+    return ObservablesExperiment(settings=list(func(qubits)), program=program)
+
+
+# ======================================================================
+# Host-side bridges: settings -> dense arrays
+# ======================================================================
 
 @functools.lru_cache(maxsize=None)
 def _oneq_state_density(label: str, index: int) -> np.ndarray:
-    """Density matrix of a Pauli eigenstate, from its preparation rotations."""
+    """Density matrix of a named one-qubit state, from its own prep
+    circuit (numpy)."""
+    prep = _one_q_state_prep(_OneQState(label, index, 0))
     psi = np.array([1.0, 0.0], dtype=complex)
-    for gate in _PREPS[(label, index)]:
-        psi = gate @ psi
+    for gate in prep.gates:
+        psi = gate.get_matrix() @ psi
     return np.outer(psi, psi.conj())
 
 
-def state_to_density(states: Sequence[Tuple[str, int]]) -> np.ndarray:
-    """Dense density matrix of a tensor product of Pauli eigenstates, given
-    as (Pauli, index) per qubit, first qubit = left-most factor."""
+def state_to_density(tps: TensorProductState, qubits: Sequence[int]) -> np.ndarray:
+    """Dense density matrix of a TensorProductState on the given qubit order.
+
+    Qubits not named in the state default to |0><0|. The matrices come from
+    the prep circuits themselves, so the data model and the estimators
+    cannot disagree on conventions.
+    """
+    named = {s.qubit: s for s in tps.states}
     rho = np.array([[1.0 + 0j]])
-    for label, index in states:
-        rho = np.kron(rho, _oneq_state_density(label, index))
+    for q in qubits:
+        if q in named:
+            s = named[q]
+            rho = np.kron(rho, _oneq_state_density(s.label, s.index))
+        else:
+            rho = np.kron(rho, np.array([[1, 0], [0, 0]], dtype=complex))
     return rho
+
+
+def _results_to_state_arrays(results: List[ExperimentResult], qubits: List[int]):
+    obs_mats = np.stack([
+        pauli_term_to_matrix(r.setting.observable.copy(coefficient=1.0), qubits)
+        for r in results])
+    coeffs = np.array([np.real(complex(r.setting.observable.coefficient))
+                       for r in results])
+    expectations = np.array([r.expectation for r in results], dtype=float) / \
+        np.where(coeffs == 0, 1.0, coeffs)
+    counts = np.array([r.total_counts for r in results])
+    return obs_mats, expectations, counts
+
+
+def _pinv_solve(rows: np.ndarray, values: np.ndarray, dim: int,
+                device) -> torch.Tensor:
+    """unvec(pinv(rows) values) + I/dim on the entry point's device, in
+    complex128: the linear-inversion estimate with the traceful identity
+    part added back."""
+    dev = entry_device(device)
+    m = torch.tensor(rows, dtype=torch.complex128, device=dev)
+    v = torch.tensor(values, dtype=torch.complex128, device=dev)
+    est = unvec(torch.linalg.pinv(m) @ v)
+    return est + torch.eye(est.shape[-1], dtype=est.dtype, device=dev) / dim
 
 
 def _logm_psd(rho: torch.Tensor) -> torch.Tensor:
@@ -362,6 +440,129 @@ def iterative_mle_state_estimate_batched(obs_mats, expectations, num_meas,
         entropy_penalty, beta, tol, maxiter, warm_start)[0]
 
 
+def linear_inv_state_estimate(results: List[ExperimentResult],
+                              qubits: List[int], device=None) -> torch.Tensor:
+    """Linear-inversion state estimate (pinv of the measurement matrix)
+    [WOOD], complex128 on ``device`` (the card by default). The traceful
+    identity component is fixed to 1/dim and added back at the end."""
+    obs_mats, expectations, _ = _results_to_state_arrays(results, qubits)
+    dim = 2 ** len(qubits)
+    measurement_matrix = np.conj(
+        np.swapaxes(obs_mats, -1, -2).reshape(len(results), dim * dim))
+    return _pinv_solve(measurement_matrix, expectations, dim, device)
+
+
+def iterative_mle_state_estimate(results: List[ExperimentResult], qubits: List[int],
+                                 epsilon: float = 0.1, entropy_penalty: float = 0.0,
+                                 beta: float = 0.0, tol: float = 1e-9,
+                                 maxiter: int = 10_000,
+                                 device=None) -> torch.Tensor:
+    """Diluted iterative MLE state estimate [DIMLE1], with optional MaxEnt
+    [DIMLE2] (``entropy_penalty``) or hedging [HMLE/IHMLE] (``beta``)
+    variants: :func:`_mle_general_batched` on one problem, complex128 on
+    ``device`` (the card by default)."""
+    if entropy_penalty != 0.0 and beta != 0.0:
+        raise ValueError("One can't sensibly do entropy penalty and hedging. "
+                         "Do one or the other but not both.")
+    obs_mats, expectations, counts = _results_to_state_arrays(results, qubits)
+    dev = entry_device(device)
+    rho, _ = _mle_general_batched(
+        torch.tensor(obs_mats, device=dev),
+        torch.tensor(expectations, device=dev)[None],
+        torch.tensor([float(np.sum(counts))], device=dev), epsilon,
+        entropy_penalty, beta, tol, maxiter, warm_start=False)
+    return rho[0]
+
+
+def _to_numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def state_log_likelihood(state, results: Iterator[ExperimentResult],
+                         qubits: Sequence[int]) -> float:
+    """log10-likelihood of the data given ``state`` (eq. 2 of [DIMLE1]);
+    host numpy."""
+    results = list(results)
+    obs_mats, expectations, counts = _results_to_state_arrays(results, list(qubits))
+    pred = np.real(np.einsum("sij,ji->s", obs_mats, _to_numpy(state)))
+    ll = 0.0
+    for n, e, p in zip(counts, expectations, pred):
+        for sign in (1, -1):
+            f_j = n * (1 + sign * e) / 2
+            pr_j = (1 + sign * p) / 2
+            if pr_j <= 0:
+                continue
+            ll += f_j * np.log10(pr_j)
+    return ll
+
+
+def _resample_expectations_with_beta(results, prior_counts: int = 1,
+                                     rng: Optional[np.random.RandomState] = None):
+    """Resample each expectation from a beta posterior (additive smoothing)."""
+    if rng is None:
+        rng = np.random
+    resampled = []
+    for res in results:
+        num_plus = ((res.expectation + 1) / 2) * res.total_counts
+        num_minus = res.total_counts - num_plus
+        alpha = num_plus + prior_counts
+        b = num_minus + prior_counts
+        resampled.append(ExperimentResult(
+            setting=res.setting,
+            expectation=2 * rng.beta(alpha, b) - 1,
+            std_err=res.std_err,
+            total_counts=res.total_counts))
+    return resampled
+
+
+def estimate_variance(results: List[ExperimentResult], qubits: List[int],
+                      tomo_estimator: Callable, functional: Callable,
+                      target_state=None, n_resamples: int = 40,
+                      project_to_physical: bool = False,
+                      rng: Optional[np.random.RandomState] = None) \
+        -> Tuple[float, float]:
+    """Bootstrap (mean, variance) of a functional of the estimated state.
+    The resampling draws from ``rng`` (numpy), as in the JAX package; the
+    estimates and the functional run where ``tomo_estimator`` puts them,
+    and ``target_state`` is moved there."""
+    if functional != dm.purity and target_state is None:
+        raise ValueError("You're not using the `purity` functional. "
+                         "Please specify a target state.")
+    sample_estimate = []
+    for _ in range(n_resamples):
+        resampled = _resample_expectations_with_beta(results, rng=rng)
+        rho = tomo_estimator(resampled, qubits)
+        if project_to_physical:
+            rho = project_state_matrix_to_physical(rho)
+        if functional == dm.purity:
+            sample_estimate.append(float(dm.purity(rho, dim_renorm=False).real))
+        else:
+            target = torch.as_tensor(target_state, dtype=rho.dtype,
+                                     device=rho.device)
+            sample_estimate.append(float(functional(target, rho).real))
+    return float(np.mean(sample_estimate)), float(np.var(sample_estimate))
+
+
+def linear_inv_process_estimate(results: List[ExperimentResult],
+                                qubits: List[int], device=None) -> torch.Tensor:
+    """Linear-inversion process estimate; returns a Choi matrix [WOOD],
+    complex128 on ``device`` (the card by default)."""
+    dim = 2 ** len(qubits)
+    rows = []
+    expectations = []
+    for r in results:
+        in_mat = state_to_density(r.setting.in_state, qubits)
+        op = pauli_term_to_matrix(r.setting.observable.copy(coefficient=1.0), qubits)
+        rows.append(np.kron(in_mat.conj(), op).T.reshape(-1).conj())  # vec()^dag
+        # expectations are coeff * <P>; the row is built from the
+        # coefficient-1 operator, so divide the coefficient out
+        coeff = np.real(complex(r.setting.observable.coefficient))
+        expectations.append(r.expectation / (coeff if coeff != 0 else 1.0))
+    return _pinv_solve(np.stack(rows), np.array(expectations, dtype=float),
+                       dim, device)
+
+
 def pgdb_a_row_pair(in_mat: np.ndarray, op: np.ndarray,
                     eye: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """(+ row, - row) of the PGDB A-matrix (eq. A1 of [PGD]) for one
@@ -370,6 +571,35 @@ def pgdb_a_row_pair(in_mat: np.ndarray, op: np.ndarray,
     proj_minus = (eye - op) / 2
     return (np.kron(in_mat, proj_plus.T).T.reshape(-1),
             np.kron(in_mat, proj_minus.T).T.reshape(-1))
+
+
+def _extract_from_results(results: List[ExperimentResult], qubits: List[int]):
+    """Build (A, n): p = A vec(E) casts outcome probabilities linearly in the
+    Choi matrix E (eq. A1 of [PGD]); n are normalized observed counts (host
+    numpy). A calibrated expectation outside [-1, 1] gives a negative
+    entry of n, as in the JAX package."""
+    a_rows = []
+    n_vals = []
+    grand_total = 0
+    dim = 2 ** len(qubits)
+    eye = np.eye(dim)
+    for result in results:
+        in_mat = state_to_density(result.setting.in_state, qubits)
+        op = pauli_term_to_matrix(result.setting.observable.copy(coefficient=1.0),
+                                  qubits)
+        row_plus, row_minus = pgdb_a_row_pair(in_mat, op, eye)
+        a_rows.append(row_plus)
+        a_rows.append(row_minus)
+        # expectations are coeff * <P>: divide the coefficient out before
+        # splitting the counts
+        coeff = np.real(complex(result.setting.observable.coefficient))
+        expected_plus = (1 + result.expectation / (coeff if coeff else 1.0)) / 2
+        n_vals.append(result.total_counts * expected_plus)
+        n_vals.append(result.total_counts * (1 - expected_plus))
+        grand_total += result.total_counts
+    a = np.stack(a_rows) / dim ** 2
+    n = np.asarray(n_vals) / grand_total
+    return a, n
 
 
 def _mle_cost_grad(a: torch.Tensor):
@@ -600,3 +830,73 @@ def pgdb_process_estimate_batched(a: torch.Tensor, n: torch.Tensor, dim: int,
     est, iters = _apg_kernel(*args, loop_dyk_iters=loop_dyk_iters,
                              warm_start=warm_start)
     return (est, iters) if return_iters else est
+
+
+def pgdb_process_estimate(results: List[ExperimentResult], qubits: List[int],
+                          trace_preserving: bool = True,
+                          maxiter: int = 1000,
+                          method: str = "pgdb",
+                          warm_start: bool = False,
+                          loop_dyk_iters: Optional[int] = None,
+                          device=None) -> torch.Tensor:
+    """Projected-gradient MLE process estimate [PGD]: the Choi matrix,
+    complex128 on ``device`` (the card by default).
+
+    The projection onto CPTP (or CP+TNI) is Dykstra's, as in the reference.
+    ``method="apg"`` selects the accelerated solver (same optimum, ~3x fewer
+    iterations); ``warm_start``/``loop_dyk_iters`` (APG only) as in
+    :func:`pgdb_process_estimate_batched`.
+    """
+    a, n = _extract_from_results(results, qubits)
+    dim = 2 ** len(qubits)
+    dev = entry_device(device)
+    a = torch.tensor(a, dtype=torch.complex128, device=dev)
+    n = torch.tensor(n, dtype=torch.float64, device=dev)[None]
+    if method == "pgdb":
+        if loop_dyk_iters is not None:
+            raise ValueError("loop_dyk_iters requires method='apg'")
+        return _pgdb_kernel(a, n, dim, trace_preserving, 1e-10, maxiter, 1e-4,
+                            1000, warm_start=warm_start)[0][0]
+    return pgdb_process_estimate_batched(
+        a, n, dim=dim, trace_preserving=trace_preserving, stop_tol=1e-10,
+        maxiter=maxiter, dyk_tol=1e-4, dyk_iters=1000, method=method,
+        warm_start=warm_start, loop_dyk_iters=loop_dyk_iters)[0]
+
+
+# ======================================================================
+# Wrapper
+# ======================================================================
+
+def do_tomography(qc, program: Circuit, qubits: List[int], kind: str,
+                  num_shots: int = 1_000, active_reset: bool = False,
+                  group_tpb_settings: bool = True, symm_type: int = -1,
+                  calibrate_observables: bool = True,
+                  show_progress_bar: bool = False) \
+        -> Tuple[torch.Tensor, ObservablesExperiment, List[ExperimentResult]]:
+    """Generate, acquire, and estimate state or process tomography end to
+    end. The circuits run on the QVM ``qc``'s device, and the estimate is
+    made there."""
+    if kind.lower() == "state":
+        expt = generate_state_tomography_experiment(program, qubits)
+    elif kind.lower() == "process":
+        expt = generate_process_tomography_experiment(program, qubits)
+    else:
+        raise ValueError("Kind must be either 'state' or 'process'.")
+
+    if group_tpb_settings:
+        expt = group_settings(expt)
+
+    results = list(estimate_observables(qc, expt, num_shots=num_shots,
+                                        symm_type=symm_type,
+                                        active_reset=active_reset,
+                                        show_progress_bar=show_progress_bar))
+    if calibrate_observables:
+        results = list(calibrate_observable_estimates(
+            qc, results, num_shots=num_shots, symm_type=symm_type,
+            noisy_program=program))
+
+    if kind.lower() == "state":
+        est = iterative_mle_state_estimate(results, qubits, device=qc.device)
+    else:
+        est = pgdb_process_estimate(results, qubits, device=qc.device)
+    return est, expt, results

@@ -810,3 +810,57 @@ def test_distance_step_f32_on_the_card_against_cpu_f64(cuda):
     td = dm.trace_distance(k0 / 4, k1 / 4)
     assert (td.cpu().double() - dm.trace_distance(c0 / 4, c1 / 4)).abs().max() \
         < 1e-5
+
+
+def _noisy_circuit():
+    from forest_benchmarking_tpu_torch.circuits import Circuit, CZ, H, RY, DELAY
+    from forest_benchmarking_tpu_torch.sim.noise import pauli_kraus_map
+    c = Circuit([H(0), RY(0.3, 2), CZ(0, 1), DELAY(5e-6, 2), CZ(1, 2)])
+    c.define_noisy_gate("CZ", None, pauli_kraus_map(
+        [0.97] + [0.002] * 15))
+    c.define_noisy_readout(0, p00=0.98, p11=0.95)
+    c.define_noisy_readout(2, p00=0.97, p11=0.9)
+    return c
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.complex128, 1e-12),
+                                       (torch.complex64, 1e-6)])
+def test_qvm_probabilities_on_the_card_equal_the_cpu(cuda, dtype, bar):
+    """The QVM runs on the card by default; its probabilities (pure and
+    density routes, marginalized, DELAY decoherence) equal the CPU's."""
+    from forest_benchmarking_tpu_torch.circuits import Circuit, H, CNOT
+    from forest_benchmarking_tpu_torch.sim import QVM
+    kw = dict(dtype=dtype, t1s={2: 20e-6}, t2s={2: 15e-6})
+    card, cpu = QVM(**kw), QVM(device="cpu", **kw)
+    assert card.device.type == "cuda"
+    for circ in (_noisy_circuit(), Circuit([H(0), CNOT(0, 1), CNOT(1, 3)])):
+        for qubits in ([0, 1, 2], [2, 0], [3, 1]):
+            p = card.probabilities(circ, qubits)
+            assert p.is_cuda
+            assert (p.cpu() - cpu.probabilities(circ, qubits)).abs().max() \
+                <= bar
+    bits = card.run_symmetrized_readout(_noisy_circuit(), 1001, -1, [0, 1, 2])
+    assert bits.shape == (1001, 3)
+
+
+def test_do_tomography_on_the_card(cuda):
+    """A small ``do_tomography`` end to end on the card: the estimate lies
+    there and is close to the CPU run's truth."""
+    from forest_benchmarking_tpu_torch import distance_measures as dm
+    from forest_benchmarking_tpu_torch.circuits import Circuit, CNOT, H, X
+    from forest_benchmarking_tpu_torch.ops import (
+        choi2pauli_liouville, kraus2choi)
+    from forest_benchmarking_tpu_torch.sim import QVM
+    from forest_benchmarking_tpu_torch.tomography import do_tomography
+    rho, _, _ = do_tomography(QVM(seed=1), Circuit([H(0), CNOT(0, 1)]),
+                              [0, 1], "state", num_shots=2000)
+    assert rho.is_cuda
+    bell = torch.zeros(4, dtype=rho.dtype, device=cuda)
+    bell[0] = bell[3] = 2 ** -0.5
+    assert dm.fidelity(torch.outer(bell, bell.conj()), rho).item() > 0.95
+    choi, _, _ = do_tomography(QVM(seed=2), Circuit([X(0)]), [0], "process")
+    assert choi.is_cuda
+    x = torch.tensor([[0, 1], [1, 0]], dtype=choi.dtype, device=cuda)
+    truth = kraus2choi(x[None])
+    assert dm.process_fidelity(choi2pauli_liouville(truth),
+                               choi2pauli_liouville(choi)).item() > 0.95

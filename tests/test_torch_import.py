@@ -20,6 +20,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
 import importlib, json, os, pkgutil, sys
+import numpy, torch  # what torch itself imports is not the port's doing
 before = set(sys.modules)
 import forest_benchmarking_tpu_torch as pkg
 from forest_benchmarking_tpu_torch import kernels
@@ -36,6 +37,7 @@ print(json.dumps({
     "jax_package": [m for m in sys.modules if m == "forest_benchmarking_tpu"
                     or m.startswith("forest_benchmarking_tpu.")],
     "triton": "triton" in sys.modules,
+    "optional": [m for m in ("networkx", "pandas", "tqdm") if m in new],
     "cpp_extension": "torch.utils.cpp_extension" in sys.modules,
     "loaded": kernels.load.cache_info().currsize,
     "build_unchanged": files_before == (sorted(os.listdir(build))
@@ -61,11 +63,14 @@ def test_port_imports_without_jax_package_or_toolchain():
                  "qubit_spectroscopy", "distance_measures",
                  "ops.lanes_dnorm", "ops.apply_superoperator",
                  "ops.compose_superoperators", "ops.channel_approximation",
-                 "ops.validate_operator", "ops.validate_superoperator"):
+                 "ops.validate_operator", "ops.validate_superoperator",
+                 "circuits", "paulis", "compilation", "observable_estimation",
+                 "sim", "sim.density", "sim.executor", "sim.qvm"):
         assert f"forest_benchmarking_tpu_torch.{name}" in info["names"]
     assert info["jax"] == []
     assert info["jax_package"] == []
     assert not info["triton"]
+    assert info["optional"] == []
     assert not info["cpp_extension"]
     assert info["loaded"] == 0
     assert info["build_unchanged"]
@@ -97,3 +102,34 @@ def test_cpu_wrapper_runs_plain_version_without_launching():
     assert lanes_apg.apg_fused.launches == before == 0
     assert est.shape == (2, 4, 4) and est.device.type == "cpu"
     assert np.all(np.isfinite(est.numpy()))
+
+
+JAX_OPS_MODULES = ("apply_superoperator", "calculational",
+                   "channel_approximation", "compose_superoperators",
+                   "project_state_matrix", "project_superoperators",
+                   "random_operators", "superoperator_transformations",
+                   "validate_operator", "validate_superoperator")
+
+
+def test_ops_package_reexports_the_jax_packages_ten_modules():
+    """``forest_benchmarking_tpu_torch.ops`` re-exports every ``__all__``
+    name of the ten modules the JAX package's ``ops/__init__.py``
+    star-imports (as ``from ...ops import kraus2choi`` expects)."""
+    import importlib
+    import forest_benchmarking_tpu.ops as jax_ops
+    from forest_benchmarking_tpu_torch import ops
+    for name in JAX_OPS_MODULES:
+        mod = importlib.import_module(f"forest_benchmarking_tpu_torch.ops.{name}")
+        assert mod.__all__
+        for attr in mod.__all__:
+            assert getattr(ops, attr) is getattr(mod, attr), (name, attr)
+    assert set(dir(jax_ops)) - set(dir(ops)) <= {"jax", "jnp"}
+
+
+def test_sim_package_reexports_the_jax_names():
+    import forest_benchmarking_tpu.sim as jax_sim
+    from forest_benchmarking_tpu_torch import sim
+    public = {n for n in dir(jax_sim) if not n.startswith("_")
+              and n not in ("density", "statevector", "qvm", "executor",
+                            "noise")}
+    assert public and all(hasattr(sim, n) for n in public)

@@ -412,3 +412,30 @@ def test_barrier_variants_differ_in_the_dykstra_barrier_only():
     assert changed == [(f"  {ab.GROUP_LINE}", f"  {ab.BLOCK_LINE}")]
     with pytest.raises(ValueError, match="once"):
         ab.variant_sources(variants["block"])
+
+
+@pytest.mark.parametrize("dim", [2, 4])
+def test_jax_ordered_calls_give_the_keyword_result(dim):
+    """``block`` and ``sublanes`` sit at the JAX package's positions and
+    change nothing: a call positioned as for JAX's ``apg_fused(a, n, dim,
+    phases, init_iters, init_sweeps, final_iters, final_sweeps,
+    final_sweeps_rest, block, use_pallas, mu, a_pinv, sublanes)`` and one
+    with JAX's keywords give bitwise the port's keyword call."""
+    a = process_tomo_A_matrix(dim // 2)
+    rng = np.random.default_rng(10 + dim)
+    counts = rng.random((3, a.shape[0]))
+    inp = inputs_from_numpy(a, counts / counts.sum(1, keepdims=True),
+                            device="cpu", dtype=torch.float64)
+    phases, mu = ((2, 1, 1),), 0.1
+    want = lanes_apg.apg_fused(inp.a, inp.n, dim, phases=phases,
+                               init_iters=1, init_sweeps=2, final_iters=1,
+                               final_sweeps=1, mu=mu, a_pinv=inp.a_pinv)
+    positional = lanes_apg.apg_fused(inp.a, inp.n, dim, phases, 1, 2, 1, 1,
+                                     None, 64, True, mu, inp.a_pinv, 8)
+    keywords = lanes_apg.apg_fused(inp.a, inp.n, dim, phases=phases,
+                                   init_iters=1, init_sweeps=2,
+                                   final_iters=1, final_sweeps=1, block=256,
+                                   use_pallas=True, mu=mu, a_pinv=inp.a_pinv,
+                                   sublanes=16)
+    assert torch.equal(positional, want)
+    assert torch.equal(keywords, want)

@@ -101,3 +101,13 @@ def test_flop_count():
     """6 sweeps of 15 rounds of ~36 n^2 rotation work plus the 8 n^3
     reconstruction, n = 16."""
     assert pallas_eigh.cp_project_flops(6) == 6 * 15 * 36 * 256 + 8 * 4096
+
+
+def test_jax_ordered_calls_give_the_keyword_result():
+    """``block`` sits at the JAX package's position (``cp_project_pallas(h,
+    sweeps, block, use_pallas)``) and changes nothing."""
+    h = torch.tensor(_herm_batch(6, 3))
+    want = pallas_eigh.cp_project_pallas(h, sweeps=2)
+    assert torch.equal(pallas_eigh.cp_project_pallas(h, 2, 64, True), want)
+    assert torch.equal(pallas_eigh.cp_project_pallas(
+        h, sweeps=2, block=256, use_pallas=True), want)

@@ -139,6 +139,54 @@ def test_ideal_reference_matches_pallas_interpret(ideal_depth7):
     np.testing.assert_allclose(got.sum(1).numpy(), 1.0, atol=1e-5)
 
 
+def test_ideal_probs_pallas_matches_jax_interpret(ideal_depth7):
+    """The JAX package's entry point on (2, ...) planes: with
+    ``interpret=True`` the plain version, bitwise, in f32 and f64 (and
+    ``perm_split3`` changes nothing); against JAX's ``ideal_probs_pallas(
+    interpret=True)``, which computes in float32 whatever its inputs, at
+    that function's own bar (2e-6); and the f64 planes against the JAX f64
+    simulator at 1e-12."""
+    perms, gates, pal = ideal_depth7
+    inp = qv_inputs_from_numpy(perms, gates, device="cpu")
+    p32 = torch.tensor(np.asarray(planes(gates)))
+    got = pallas_traj.ideal_probs_pallas(inp.perms, p32, 7, interpret=True)
+    assert torch.equal(got, pallas_traj.ideal_probs_reference(
+        inp.perms, inp.gates, 7))
+    assert torch.equal(got, pallas_traj.ideal_probs_pallas(
+        inp.perms, p32, 7, perm_split3=False))
+    np.testing.assert_allclose(got.numpy(), pal, atol=2e-6)
+    g64 = gates.astype(np.complex128)
+    p64 = torch.tensor(np.stack([g64.real, g64.imag]))
+    got64 = pallas_traj.ideal_probs_pallas(inp.perms, p64, 7, interpret=True)
+    assert got64.dtype == torch.float64
+    want = np.asarray(jax.vmap(
+        lambda p, g: jax_qv._simulate_qv_circuit(p, g, 7))(
+        jnp.asarray(perms), jnp.asarray(g64)))
+    np.testing.assert_allclose(got64.numpy(), want, atol=1e-12)
+
+
+def test_traj_probs_pallas_matches_jax_interpret(traj_depth7):
+    """With ``interpret=True`` the plain version, bitwise; against JAX's
+    ``traj_probs_pallas(interpret=True)`` (float32 inside) at that
+    function's own bar: more than 97% of trajectories within 1e-4."""
+    perms, gates, kraus, u, pal = traj_depth7
+    inp = qv_inputs_from_numpy(perms, gates, kraus, u, device="cpu")
+    got = pallas_traj.traj_probs_pallas(
+        inp.perms, torch.tensor(np.asarray(planes(gates))),
+        torch.tensor(np.asarray(planes(kraus))), inp.uniforms, 7,
+        interpret=True)
+    assert torch.equal(got, pallas_traj.traj_probs_reference(*inp, 7))
+    assert got.shape == pal.shape
+    assert (np.abs(got.numpy() - pal).max(axis=1) < 1e-4).mean() > 0.97
+
+
+@pytest.mark.parametrize("depth", range(1, 13))
+def test_supports_pallas_traj_is_the_routing_rule(depth):
+    assert pallas_traj.supports_pallas_traj(depth) == (2 <= depth <= 10)
+    assert quantum_volume._use_kernels(depth, torch.device("cuda")) == (
+        2 <= depth <= 10)
+
+
 # The QV kernels' CUDA source, built with g++ against
 # tests/cuda_host/cuda_runtime.h: each thread of a block runs as a host
 # thread, each shuffle and __syncwarp on a barrier of the warp's lanes. The
