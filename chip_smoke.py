@@ -236,7 +236,43 @@ Phases, each of which must pass:
    near-unitary channels, in the JAX package as here: PERF.md). CUDA-event
    times of the kernel, its plain version and the call, with the bound.
 
-Before it, one JSON line ``{"tomography": ...}`` holds phase 17's figures.
+18. the protocols of the Clifford engine on the card, plain PyTorch, with
+   every launch counter zeroed first and no hand kernel launched; the
+   port's QVM (complex128) on the card throughout. ``clifford_group(2)``'s
+   breadth-first search is timed first (host). (a) ``do_rb``, with a
+   channel attached to every Clifford (``clifford_noise`` wraps the
+   module's ``group_sequences_into_parallel_experiments`` for the call, as
+   the JAX suite's ``add_noise_to_sequences`` does before grouping): 1Q RB
+   under the Pauli channel of ``test_randomized_benchmarking.py:31`` (decay
+   within 2.5 sigma of 0.85), 2Q RB under 5% depolarizing (within 2.5
+   sigma of 0.95), 1Q IRB with 4% depolarizing per Clifford and 10% on the
+   interleaved RX(pi/2) (``irb_decay_to_gate_error`` within 2.5 sigma of
+   0.05), and 1Q unitarity under depolarizing decay 0.9 (within 0.02 of
+   0.81, the implied RB decay within 0.02 of 0.9). (b) ``do_t1_or_t2``
+   for T1 = 12 us (within 1 us), T2* and T2 echo at T2 = 9 us (within
+   1.5 us), 4000 shots. (c) ``do_dfe``, state and process, of a random 2Q
+   Clifford drawn from ``clifford_group(2)``: noiseless at least 0.99;
+   with 10% two-qubit depolarizing after it, within 0.02 of 1 - 3p/4
+   (config 4's DFE half). (d) ``do_rpe`` of RZ(0.3), RZ(1.1) and RZ(2.5)
+   within 0.05 rad. (e) ``estimate_joint_confusion_in_set`` over qubit
+   pairs of three qubits with a known readout confusion on two: every
+   entry within 5 binomial sigma. Each run is timed by stage (generation,
+   acquisition, fit) with the circuits simulated, circuits/s and the
+   executor cache's hits and misses; the acquisition of one run an item
+   (of 1Q and 2Q RB in (a)) is profiled again (launches, busy time,
+   synchronizations); a sample of every run's
+   programs has its probabilities on the card within 1e-12 of the CPU's.
+   (f) BASELINE config 3 from circuits: 1000 2Q RB sequences from the
+   Clifford engine (200 at each of depths 2, 4, 8, 16 and 32) and 1000
+   with an interleaved CZ; ``sequences_to_ptm_stack`` on the host,
+   ``simulate_rb_survival_batched`` on the card (float64, 2% two-qubit
+   depolarizing PTM after every element, 500 shots), ``fit_rb_results``;
+   both decays within 0.01 of the analytic ones (0.98 and 0.98^2), each
+   stage timed, the simulation profiled, and exact survivals of a sample of
+   sequences on the card within 1e-12 of the CPU's.
+
+Before it, one JSON line ``{"tomography": ...}`` holds phase 17's figures,
+and one ``{"protocols": ...}`` phase 18's.
 The second-to-last line is the per-kernel JSON record: ``launches`` from
 the main paths; ``ms``/``plain_ms``: the kernel alone and the plain version
 at the main path's size (APG: headline schedule); ``bound_ms``: the larger
@@ -259,6 +295,7 @@ printing no result, if CUDA is unavailable or any phase fails.
 """
 import contextlib
 import functools
+import itertools
 import json
 import math
 import re
@@ -1082,37 +1119,39 @@ def noisy_cz(circuits, noise, pair):
 
 
 @contextlib.contextmanager
-def stage_clock(tomography):
-    """Host seconds of the three stages of ``do_tomography`` (acquisition,
-    calibration, estimation), each through a synchronize: the module
-    attributes it calls are wrapped for the block."""
+def module_clock(module, stages):
+    """Host seconds by stage of the functions of ``module`` named in
+    ``stages`` (name -> stage), each through a synchronize, for the block;
+    results that are iterators are listed."""
     clock = {}
+    saved = {}
 
-    def timed(name, stage, listed):
-        real = getattr(tomography, name)
-
+    def wrap(real, stage):
         def run(*args, **kwargs):
             t0 = time.perf_counter()
             out = real(*args, **kwargs)
-            out = list(out) if listed else out
+            if hasattr(out, "__next__"):
+                out = list(out)
             torch.cuda.synchronize()
             clock[stage] = clock.get(stage, 0.0) + time.perf_counter() - t0
             return out
-        return real, run
+        return run
 
-    names = (("estimate_observables", "acquisition", True),
-             ("calibrate_observable_estimates", "calibration", True),
-             ("pgdb_process_estimate", "estimation", False),
-             ("iterative_mle_state_estimate", "estimation", False))
-    saved = {}
-    for name, stage, listed in names:
-        saved[name], wrapped = timed(name, stage, listed)
-        setattr(tomography, name, wrapped)
+    for name, stage in stages.items():
+        saved[name] = getattr(module, name)
+        setattr(module, name, wrap(saved[name], stage))
     try:
         yield clock
     finally:
         for name, real in saved.items():
-            setattr(tomography, name, real)
+            setattr(module, name, real)
+
+
+# the stages of do_tomography: the module functions it calls
+TOMO_STAGES = {"estimate_observables": "acquisition",
+               "calibrate_observable_estimates": "calibration",
+               "pgdb_process_estimate": "estimation",
+               "iterative_mle_state_estimate": "estimation"}
 
 
 def tomography_run(name, card, tomography, qvm, prog, qubits, kind):
@@ -1132,7 +1171,7 @@ def tomography_run(name, card, tomography, qvm, prog, qubits, kind):
 
     tomography._mle_general_batched = counted_mle
     try:
-        with stage_clock(tomography) as clock:
+        with module_clock(tomography, TOMO_STAGES) as clock:
             t0 = time.perf_counter()
             est, expt, results = tomography.do_tomography(qvm, prog, qubits,
                                                           kind)
@@ -1366,6 +1405,477 @@ def phase_tomography(card: str, dev: torch.device) -> dict:
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
     return record
 
+
+PROTO_SEED = SEED + 18
+RB_PAULI_1Q = (0.85 + 0.15 / 4, 0.06, 0.04, 0.0125)  # decay 0.85
+RB_DEPOL_2Q = 0.05          # 2Q depolarizing per Clifford: decay 0.95
+IRB_CLIFFORD, IRB_GATE = 0.04, 0.1   # 1Q depolarizing p per Clifford, gate
+UNITARITY_DECAY = 0.9       # depolarizing decay per Clifford: unitarity 0.81
+T1, T2 = 12e-6, 9e-6
+DFE_DEPOL = 0.1             # 2Q depolarizing after the Clifford
+RPE_ANGLES = (0.3, 1.1, 2.5)
+CONFUSION = {0: (0.9, 0.8), 1: (0.97, 0.85)}   # p(0|0), p(1|1)
+CONFIG3_DEPTHS = (2, 4, 8, 16, 32)
+CONFIG3_PER_DEPTH = 200
+CONFIG3_DEPOL = 0.02        # 2Q depolarizing PTM after every element
+CONFIG3_SHOTS = 500
+SIGMAS = 2.5                # the decay bars of the JAX suite, in sigma
+CONFUSION_SIGMAS = 5
+
+
+def noise_carrier(circuits, qubits, kraus, name):
+    """A no-op custom gate and the annotation that attaches ``kraus`` to it
+    (the JAX suite's pattern for noise that survives compilation)."""
+    eye = np.eye(2 ** len(qubits), dtype=complex)
+    return circuits.Gate(name, (), tuple(qubits),
+                         matrix=tuple(map(tuple, eye))), (name, kraus)
+
+
+@contextlib.contextmanager
+def clifford_noise(rb, circuits, kraus, every=1):
+    """For the block, ``do_rb`` attaches ``kraus`` after every ``every``-th
+    element of each sequence (the Cliffords; every other element of an
+    interleaved sequence): the module's
+    ``group_sequences_into_parallel_experiments`` is wrapped to add the
+    noise before it merges the sequences, as the JAX suite's
+    ``add_noise_to_sequences`` does."""
+    real = rb.group_sequences_into_parallel_experiments
+
+    def noisy(parallel, groups, *args, **kwargs):
+        for seqs, group in zip(parallel, groups):
+            gate, (name, k) = noise_carrier(circuits, group, kraus,
+                                            "seqnoise")
+            for seq in seqs:
+                for circ in seq[::every]:
+                    circ.gates.append(gate)
+                    circ.define_noisy_gate(name, list(group), k)
+        return real(parallel, groups, *args, **kwargs)
+
+    rb.group_sequences_into_parallel_experiments = noisy
+    try:
+        yield
+    finally:
+        rb.group_sequences_into_parallel_experiments = real
+
+
+class Planned:
+    """Counts the circuits a QVM simulates (its ``_plan`` calls)."""
+
+    def __init__(self, qvm):
+        self.count = 0
+        real = qvm._plan
+
+        def plan(*args, **kwargs):
+            self.count += 1
+            return real(*args, **kwargs)
+        qvm._plan = plan
+
+
+def card_against_cpu(qvm, programs, meas, **qvm_kw):
+    """The largest |card - CPU| probability over the programs (complex128,
+    the CPU QVM with the same T1 and T2)."""
+    from forest_benchmarking_tpu_torch.sim import QVM
+    cpu = QVM(device="cpu", **qvm_kw)
+    return max((qvm.probabilities(p, m).cpu() - cpu.probabilities(p, m))
+               .abs().max().item() for p, m in zip(programs, meas))
+
+
+def experiment_programs(expts, limit=4):
+    """The compiled programs (and measured qubits) of the first ``limit``
+    experiments."""
+    from forest_benchmarking_tpu_torch.observable_estimation import (
+        generate_experiment_programs)
+    programs, meas = [], []
+    for expt in list(expts)[:limit]:
+        p, m = generate_experiment_programs(expt)
+        programs += p
+        meas += m
+    return programs, meas
+
+
+def protocol_run(name, card, module, stages, call, qvm, acquire=None):
+    """``call()`` timed by stage (``module_clock``), with the executor's
+    cache hits and misses and the circuits ``qvm`` simulated; then, when
+    ``acquire`` is given, ``acquire(call's result)()`` (the run's
+    acquisition again) under ``torch.profiler``. Returns (call's result,
+    record)."""
+    from forest_benchmarking_tpu_torch.sim.executor import (
+        executor_cache_info)
+    planned = Planned(qvm)
+    before = executor_cache_info()
+    with module_clock(module, stages) as clock:
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    after = executor_cache_info()
+    rec = dict(host_s=wall, **{f"{k}_s": v for k, v in clock.items()},
+               cache_hits=after["hits"] - before["hits"],
+               cache_misses=after["misses"] - before["misses"],
+               circuits=planned.count,
+               circuits_per_s=planned.count / clock["acquisition"])
+    text = (f"timing {name}: host clock {wall:.3f} s ("
+            + ", ".join(f"{k} {v:.3f} s" for k, v in clock.items())
+            + f"), {planned.count} circuits, {rec['circuits_per_s']:.1f} "
+            f"circuits/s; executor cache {rec['cache_hits']} hits, "
+            f"{rec['cache_misses']} misses")
+    if acquire is not None:
+        launches, busy, syncs, _, _ = profiled(acquire(out))
+        rec.update(launches=launches, busy_ms=busy, syncs=syncs,
+                   launches_per_circuit=launches / planned.count)
+        text += (f"; the acquisition profiled again: {launches} device "
+                 f"launches ({launches / planned.count:.0f} a circuit), "
+                 f"busy {busy:.3f} ms, {syncs} synchronizations")
+    print(text + f" on {card}")
+    return out, rec
+
+
+def phase_protocols(card: str, dev: torch.device) -> dict:
+    """18. The Clifford-engine protocols on the card; see the module
+    docstring."""
+    t_phase = time.perf_counter()
+    from forest_benchmarking_tpu_torch import (
+        circuits, clifford, direct_fidelity_estimation as dfe, readout,
+        qubit_spectroscopy as qs, randomized_benchmarking as rb,
+        robust_phase_estimation as rpe)
+    from forest_benchmarking_tpu_torch.observable_estimation import (
+        get_calibration_program)
+    from forest_benchmarking_tpu_torch.sim import QVM, noise
+    from forest_benchmarking_tpu_torch.utils import (
+        parameterized_bitstring_prep)
+    record = {}
+    counters = port_launches()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    rb_stages = {"generate_rb_experiments": "generation",
+                 "generate_unitarity_experiments": "generation",
+                 "acquire_rb_data": "acquisition",
+                 "fit_rb_results": "fit", "fit_unitarity_results": "fit"}
+
+    # (a) do_rb on the card: 1Q RB, 2Q RB, 1Q IRB, 1Q unitarity
+    t_part = time.perf_counter()
+    clifford.clifford_group.cache_clear()
+    t0 = time.perf_counter()
+    clifford.clifford_group(2)
+    record["clifford_group_2_s"] = time.perf_counter() - t0
+    print(f"clifford_group(2): {len(clifford.clifford_group(2)[0])} "
+          f"elements by breadth-first search in "
+          f"{record['clifford_group_2_s']:.3f} s (host)")
+
+    def rb_item(name, groups, depths, kraus, every=1, seed=0, profile=False,
+                **kw):
+        qvm = QVM(seed=PROTO_SEED + seed, device=dev)
+
+        def call():
+            with clifford_noise(rb, circuits, kraus, every):
+                return rb.do_rb(qvm, groups, depths, random_seed=seed, **kw)
+        (decays, expts, results), rec = protocol_run(
+            name, card, rb, rb_stages, call, qvm, (lambda out: lambda: (
+                rb.acquire_rb_data(qvm, out[1], kw["num_shots"])))
+            if profile else None)
+        stats = rb.get_stats_by_qubit_group(groups, results)[tuple(groups[0])]
+        fit = (rb.fit_unitarity_results(depths, stats["expectation"],
+                                        stats["std_err"], device=dev)
+               if kw.get("is_unitarity_expt") else
+               rb.fit_rb_results(depths, stats["expectation"],
+                                 stats["std_err"], kw.get("num_shots", 1000),
+                                 device=dev))
+        decay, sigma = fit.params["decay"].value, fit.params["decay"].stderr
+        check(decay == decays[tuple(groups[0])], f"{name}: the refit moved")
+        prob_err = card_against_cpu(qvm, *experiment_programs(expts))
+        check(prob_err <= PROB_BAR, f"{name}: card against CPU {prob_err}")
+        return decay, sigma, dict(rec, decay=decay, stderr=sigma,
+                                  max_prob_err=prob_err, sequences=len(expts))
+
+    depths_1q = [d for d in (2, 4, 8, 12, 16, 24) for _ in range(10)]
+    decay, sigma, rec = rb_item(
+        "RB 1Q", [(0,)], depths_1q, noise.pauli_kraus_map(RB_PAULI_1Q),
+        seed=1, profile=True, num_shots=500)
+    print(f"main path RB 1Q (Pauli channel per Clifford): decay {decay:.5f} "
+          f"+- {sigma:.5f}, want 0.85 within {SIGMAS} sigma")
+    check(abs(decay - 0.85) <= SIGMAS * max(sigma, 1e-3), f"RB 1Q {decay}")
+    record["rb_1q"] = rec
+
+    p = RB_DEPOL_2Q
+    depths_2q = [d for d in (2, 4, 8, 12, 16) for _ in range(8)]
+    decay, sigma, rec = rb_item(
+        "RB 2Q", [(0, 1)], depths_2q,
+        noise.pauli_kraus_map([1 - 15 * p / 16] + [p / 16] * 15), seed=2,
+        profile=True, num_shots=500)
+    print(f"main path RB 2Q (depolarizing {p} per Clifford): decay "
+          f"{decay:.5f} +- {sigma:.5f}, want {1 - p} within {SIGMAS} sigma")
+    check(abs(decay - (1 - p)) <= SIGMAS * max(sigma, 1e-3), f"RB 2Q {decay}")
+    record["rb_2q"] = rec
+
+    gate = circuits.Circuit([circuits.RX(np.pi / 2, 0)])
+    carrier, (cname, ck) = noise_carrier(
+        circuits, (0,), noise.depolarizing_kraus_map(IRB_GATE), "gnoise")
+    gate += carrier
+    gate.define_noisy_gate(cname, [0], ck)
+    kraus_c = noise.depolarizing_kraus_map(IRB_CLIFFORD)
+    depths_irb = [d for d in (2, 4, 8, 12, 16) for _ in range(10)]
+    rb_decay, rb_sigma, rec_rb = rb_item(
+        "IRB reference 1Q", [(0,)], depths_irb, kraus_c, seed=3,
+        num_shots=1000)
+    irb_decay, irb_sigma, rec_irb = rb_item(
+        "IRB interleaved 1Q", [(0,)], depths_irb, kraus_c, every=2, seed=4,
+        num_shots=1000, interleaved_gate=gate)
+    error = rb.irb_decay_to_gate_error(irb_decay, rb_decay, 2)
+    err_sigma = 0.5 * math.hypot(irb_sigma / rb_decay,
+                                 irb_decay * rb_sigma / rb_decay ** 2)
+    print(f"main path IRB 1Q (depolarizing {IRB_CLIFFORD} per Clifford, "
+          f"{IRB_GATE} on RX(pi/2)): decays {rb_decay:.5f} / "
+          f"{irb_decay:.5f}, gate error {error:.5f} +- {err_sigma:.5f}, want "
+          f"{IRB_GATE / 2} within {SIGMAS} sigma")
+    check(abs(error - IRB_GATE / 2) <= SIGMAS * max(err_sigma, 1e-3),
+          f"IRB gate error {error}")
+    record["irb_1q"] = dict(reference=rec_rb, interleaved=rec_irb,
+                            gate_error=error, gate_error_stderr=err_sigma)
+
+    f = UNITARITY_DECAY
+    depths_u = [d for d in (1, 4, 7, 10) for _ in range(8)]
+    unitarity, _, rec = rb_item(
+        "unitarity 1Q", [(0,)], depths_u,
+        noise.pauli_kraus_map([f + (1 - f) / 4] + [(1 - f) / 4] * 3),
+        seed=5, num_shots=3000, is_unitarity_expt=True)
+    implied = rb.unitarity_to_rb_decay(unitarity, 2)
+    print(f"main path unitarity 1Q (depolarizing decay {f}): unitarity "
+          f"{unitarity:.5f} (want {f ** 2:.2f} within 0.02), implied RB "
+          f"decay {implied:.5f} (want {f} within 0.02)")
+    check(abs(unitarity - f ** 2) <= 0.02 and abs(implied - f) <= 0.02,
+          f"unitarity {unitarity}")
+    record["unitarity_1q"] = rec
+    record["a_s"] = time.perf_counter() - t_part
+
+    # (b) do_t1_or_t2 with T1 and T2 at DELAY
+    t_part = time.perf_counter()
+    qs_stages = {name: "generation" for name in (
+        "generate_t1_experiments", "generate_t2_star_experiments",
+        "generate_t2_echo_experiments")}
+    qs_stages.update(acquire_qubit_spectroscopy_data="acquisition",
+                     fit_t1_results="fit", fit_t2_results="fit")
+    for seed, (kind, truth, bar, times) in enumerate((
+            ("t1", T1, 1.0, np.linspace(1e-6, 40e-6, 15)),
+            ("t2_star", T2, 1.5, np.linspace(0.5e-6, 20e-6, 25)),
+            ("t2_echo", T2, 1.5, np.linspace(0.5e-6, 20e-6, 25)))):
+        kw = dict(t1s={0: T1 if kind == "t1" else 100e-6},
+                  t2s={} if kind == "t1" else {0: T2})
+        qvm = QVM(seed=PROTO_SEED + 10 + seed, device=dev, **kw)
+        (times_by_q, expts, _), rec = protocol_run(
+            kind, card, qs, qs_stages, functools.partial(
+                qs.do_t1_or_t2, qvm, [0], times, kind, num_shots=4000), qvm,
+            (lambda out: lambda: qs.acquire_qubit_spectroscopy_data(
+                qvm, out[1], 4000)) if kind == "t1" else None)
+        prob_err = card_against_cpu(qvm, *experiment_programs(expts, 25),
+                                    **kw)
+        print(f"main path {kind}: {times_by_q[0]:.4f} us, want "
+              f"{truth / 1e-6:.1f} within {bar} us; {len(expts)} programs, "
+              f"max |card - CPU| probability {prob_err:.3e}")
+        check(abs(times_by_q[0] - truth / 1e-6) < bar, f"{kind} {times_by_q}")
+        check(prob_err <= PROB_BAR, f"{kind}: card against CPU {prob_err}")
+        record[kind] = dict(rec, decay_time_us=times_by_q[0],
+                            max_prob_err=prob_err)
+    record["b_s"] = time.perf_counter() - t_part
+
+    # (c) do_dfe of a seeded random 2Q Clifford (config 4's DFE half)
+    t_part = time.perf_counter()
+    t0 = time.perf_counter()
+    (program,), _ = clifford.random_clifford_circuits(
+        [0, 1], 1, np.random.RandomState(PROTO_SEED))
+    group_s = time.perf_counter() - t0
+    p = DFE_DEPOL
+    carrier, (cname, ck) = noise_carrier(
+        circuits, (0, 1), noise.pauli_kraus_map(
+            [1 - 15 * p / 16] + [p / 16] * 15), "noise")
+    noisy = program.copy()
+    noisy += carrier
+    noisy.define_noisy_gate(cname, [0, 1], ck)
+    dfe_stages = {name: "generation" for name in dfe.__all__
+                  if name.startswith("generate_")}
+    dfe_stages.update(acquire_dfe_data="acquisition", estimate_dfe="fit")
+    print(f"main path DFE: a random 2Q Clifford drawn from "
+          f"clifford_group(2) in {group_s:.4f} s, {len(program.gates)} "
+          f"gates: " + "; ".join(str(g) for g in program.gates))
+    runs = [(prog, shots, want, bar, kind)
+            for prog, shots, want, bar in ((program, 2000, 1.0, None),
+                                           (noisy, 5000, 1 - 3 * p / 4, 0.02))
+            for kind in ("state", "process")]
+    for seed, (prog, shots, want, bar, kind) in enumerate(runs):
+        qvm = QVM(seed=PROTO_SEED + 20 + seed, device=dev)
+        ((fid, err), expt, results), rec = protocol_run(
+            f"DFE {kind} {'noisy' if bar else 'noiseless'}", card, dfe,
+            dfe_stages, functools.partial(dfe.do_dfe, qvm, prog, [0, 1],
+                                          kind, num_shots=shots), qvm,
+            (lambda out: lambda: dfe.acquire_dfe_data(
+                qvm, out[1], num_shots=shots))
+            if bar and kind == "process" else None)
+        programs, meas = experiment_programs([expt], limit=1)
+        obs = list(dict.fromkeys(r.setting.observable.copy(
+            coefficient=1.0) for r in results))
+        programs += [get_calibration_program(o, prog) for o in obs]
+        meas += [o.get_qubits() for o in obs]
+        prob_err = card_against_cpu(qvm, programs[::4], meas[::4])
+        ok = fid >= 0.99 if bar is None else abs(fid - want) <= bar
+        print(f"main path DFE {kind} {'noisy' if bar else 'noiseless'}: "
+              f"{len(results)} settings, fidelity {fid:.5f} +- "
+              f"{err:.5f} (want "
+              + (">= 0.99" if bar is None else f"{want} within {bar}")
+              + f"); max |card - CPU| probability {prob_err:.3e}")
+        check(ok, f"DFE {kind}: {fid}")
+        check(prob_err <= PROB_BAR, f"DFE: card against CPU {prob_err}")
+        record[f"dfe_{kind}_{'noisy' if bar else 'noiseless'}"] = dict(
+            rec, fidelity=fid, stderr=err, max_prob_err=prob_err,
+            settings=len(results))
+    record["c_s"] = time.perf_counter() - t_part
+
+    # (d) do_rpe of RZ(theta)
+    t_part = time.perf_counter()
+    rpe_stages = {"generate_rpe_experiments": "generation",
+                  "acquire_rpe_data": "acquisition",
+                  "robust_phase_estimate": "fit"}
+    for i, angle in enumerate(RPE_ANGLES):
+        qvm = QVM(seed=PROTO_SEED + 30 + i, device=dev)
+        (estimates, expts, _), rec = protocol_run(
+            f"RPE RZ({angle})", card, rpe, rpe_stages, functools.partial(
+                rpe.do_rpe, qvm, circuits.Circuit([circuits.RZ(angle, 0)]),
+                [circuits.Circuit()], [(0,)], num_depths=6,
+                multiplicative_factor=10.0), qvm,
+            (lambda out: lambda: rpe.acquire_rpe_data(
+                qvm, out[1], multiplicative_factor=10.0)) if i == 0 else None)
+        est = estimates[(0,)]
+        prob_err = card_against_cpu(qvm, *experiment_programs(expts, 6))
+        print(f"main path RPE RZ({angle}): {est:.5f} rad, want within 0.05; "
+              f"max |card - CPU| probability {prob_err:.3e}")
+        check(abs(est - angle) <= 0.05, f"RPE {angle}: {est}")
+        check(prob_err <= PROB_BAR, f"RPE: card against CPU {prob_err}")
+        record[f"rpe_{angle}"] = dict(rec, estimate=est,
+                                      max_prob_err=prob_err)
+    record["d_s"] = time.perf_counter() - t_part
+
+    # (e) estimate_joint_confusion_in_set under a known readout confusion
+    t_part = time.perf_counter()
+
+    class ConfusedQVM(QVM):
+        def run(self, circuit, qubits, num_shots):
+            confused = circuit.copy()
+            for q, (p00, p11) in CONFUSION.items():
+                confused.define_noisy_readout(q, p00=p00, p11=p11)
+            return super().run(confused, qubits, num_shots)
+
+    shots = 4000
+    qvm = ConfusedQVM(seed=PROTO_SEED + 40, device=dev)
+    cms, rec = protocol_run(
+        "joint confusion", card, readout,
+        {"estimate_joint_confusion_in_set": "acquisition"},
+        lambda: readout.estimate_joint_confusion_in_set(
+            qvm, qubits=[0, 1, 2], num_shots=shots, joint_group_size=2), qvm,
+        lambda out: lambda: readout.estimate_joint_confusion_in_set(
+            qvm, qubits=[0, 1, 2], num_shots=shots, joint_group_size=2))
+    worst = 0.0
+    for group, cm in cms.items():
+        truth = np.ones((1, 1))
+        for q in group:
+            p00, p11 = CONFUSION.get(q, (1.0, 1.0))
+            truth = np.kron(truth, [[p00, 1 - p00], [1 - p11, p11]])
+        sigma = np.sqrt(truth * (1 - truth) / shots)
+        worst = max(worst, float(np.max(
+            np.abs(cm - truth) / np.maximum(sigma, 1e-12)
+            * (np.abs(cm - truth) > 1e-12))))
+    programs = []
+    for bits in itertools.product([0, 1], repeat=2):
+        prog = parameterized_bitstring_prep([0, 1], bits)
+        for q, (p00, p11) in CONFUSION.items():
+            prog.define_noisy_readout(q, p00=p00, p11=p11)
+        programs.append(prog)
+    prob_err = card_against_cpu(qvm, programs, [[0, 1]] * len(programs))
+    print(f"main path joint confusion: groups {sorted(cms)}, the largest "
+          f"deviation from the true confusion {worst:.3f} binomial sigma "
+          f"(bar {CONFUSION_SIGMAS}); max |card - CPU| probability "
+          f"{prob_err:.3e}")
+    check(set(cms) == {(0, 1), (0, 2), (1, 2)} and worst <= CONFUSION_SIGMAS,
+          f"joint confusion: {worst} sigma")
+    check(prob_err <= PROB_BAR, f"confusion: card against CPU {prob_err}")
+    record["confusion"] = dict(rec, worst_sigma=worst, max_prob_err=prob_err)
+    record["e_s"] = time.perf_counter() - t_part
+
+    # (f) BASELINE config 3 from circuits
+    t_part = time.perf_counter()
+    depths = [d for d in CONFIG3_DEPTHS for _ in range(CONFIG3_PER_DEPTH)]
+    cz = circuits.Circuit([circuits.CZ(0, 1)])
+    p = CONFIG3_DEPOL
+    noise_ptm = np.diag([1.0] + [1 - p] * 15)
+    gen = torch.Generator(device=dev).manual_seed(PROTO_SEED)
+    rec = {}
+    decays = {}
+    for name, gate, want in (("rb", None, 1 - p), ("irb", cz, (1 - p) ** 2)):
+        t0 = time.perf_counter()
+        seqs = rb.generate_rb_experiment_sequences(
+            (0, 1), depths, gate, random_seed=PROTO_SEED + len(name))
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ptms, lengths = rb.sequences_to_ptm_stack(seqs, (0, 1))
+        t_ptm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ptms_dev = torch.tensor(ptms, device=dev)
+        torch.cuda.synchronize()
+        t_copy = time.perf_counter() - t0
+
+        def simulate():
+            return rb.simulate_rb_survival_batched(
+                ptms_dev, noise_ptm, gen, num_shots=CONFIG3_SHOTS,
+                lengths=lengths)
+        t0 = time.perf_counter()
+        surv = simulate()
+        torch.cuda.synchronize()
+        t_sim = time.perf_counter() - t0
+        launches, busy, syncs, _, _ = profiled(simulate)
+        s = surv.cpu().numpy()
+        t0 = time.perf_counter()
+        var = np.clip(s * (1 - s), 1 / CONFIG3_SHOTS, None) / CONFIG3_SHOTS
+        fit = rb.fit_rb_results(depths, [[2 * v - 1] for v in s],
+                                [[2 * np.sqrt(v)] for v in var], device=dev)
+        t_fit = time.perf_counter() - t0
+        decays[name] = fit.params["decay"].value
+        # exact survivals of a sample of sequences, card against CPU
+        sample = slice(0, None, 97)
+        exact = rb.simulate_rb_survival_batched(
+            ptms_dev[sample], noise_ptm, lengths=lengths[sample])
+        exact_cpu = rb.simulate_rb_survival_batched(
+            ptms[sample], noise_ptm, lengths=lengths[sample], device="cpu")
+        sim_err = (exact.cpu() - exact_cpu).abs().max().item()
+        elements = int(lengths.sum())
+        print(f"main path config 3 {name.upper()} from circuits: "
+              f"{len(seqs)} 2Q sequences at depths {CONFIG3_DEPTHS}, "
+              f"{elements} elements; generation {t_gen:.3f} s, PTM stack "
+              f"{t_ptm:.3f} s ({elements / t_ptm:.0f} elements/s, "
+              f"{len(seqs) / (t_gen + t_ptm):.1f} circuits/s), copy "
+              f"{t_copy:.3f} s, simulation {1e3 * t_sim:.3f} ms "
+              f"({launches} launches, busy {busy:.3f} ms, {syncs} "
+              f"synchronizations), fit {t_fit:.3f} s; decay "
+              f"{decays[name]:.5f}, want {want:.5f} within 0.01; exact "
+              f"survivals card against CPU {sim_err:.3e} on {card}")
+        check(abs(decays[name] - want) <= 0.01, f"config 3 {name}: "
+              f"{decays[name]}")
+        check(sim_err <= PROB_BAR, f"config 3 {name}: card against CPU "
+              f"{sim_err}")
+        rec[name] = dict(sequences=len(seqs), elements=elements,
+                         generation_s=t_gen, ptm_stack_s=t_ptm, copy_s=t_copy,
+                         simulation_ms=1e3 * t_sim, launches=launches,
+                         busy_ms=busy, syncs=syncs, fit_s=t_fit,
+                         decay=decays[name], max_prob_err=sim_err,
+                         circuits_per_s=len(seqs) / (t_gen + t_ptm))
+        del ptms, ptms_dev
+    gate_error = rb.irb_decay_to_gate_error(decays["irb"], decays["rb"], 4)
+    print(f"main path config 3: CZ error from IRB {gate_error:.5f} (the "
+          f"depolarizing channel's {0.75 * p:.5f})")
+    record["config3"] = dict(rec, cz_error=gate_error,
+                             part_s=time.perf_counter() - t_part)
+    hand = [c.launches for c in counters]
+    check(sum(hand) == 0, f"the protocols launched hand kernels {hand}")
+    record["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 18: {record['phase_s']:.1f} s")
+    return record
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -2042,6 +2552,10 @@ def main() -> int:
     # from circuits in its part (c))
     tomo_record = phase_tomography(card, dev)
 
+    # 18. the Clifford-engine protocols on the card (plain PyTorch: no TPU
+    # kernel on these paths)
+    proto_record = phase_protocols(card, dev)
+
     def record(name, source, replaces, launch_count, err, ms_k, ms_p, bound,
                library_ms=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -2054,6 +2568,7 @@ def main() -> int:
     apg_src = "forest_benchmarking_tpu_torch/csrc/apg_fused.cu"
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"tomography": tomo_record}))
+    print(json.dumps({"protocols": proto_record}))
     print(json.dumps({"kernels": [
         record("apg_fused", apg_src,
                "forest_benchmarking_tpu/ops/lanes_apg.py:674", launches,

@@ -65,6 +65,17 @@ estimators take ``device`` (the card by default). The optional packages
 ``tqdm`` (progress bars) are imported only where they are used; the
 default greedy grouping needs none of them.
 
+Slice 12 covers the protocols that run on the Clifford engine, plain
+PyTorch: ``clifford`` (tableaus, the enumerated one- and two-qubit groups,
+RB sequences, synthesis for three qubits and more), the circuit halves of
+``randomized_benchmarking`` (RB, interleaved RB and unitarity experiments,
+``do_rb``, ``sequences_to_ptm_stack``) and ``qubit_spectroscopy`` (the
+T1, T2, Rabi and CZ-Ramsey generators, ``do_t1_or_t2``), and
+``direct_fidelity_estimation`` (``do_dfe``), ``robust_phase_estimation``
+(``do_rpe``) and ``readout``. Sequences and Monte Carlo settings come from
+numpy ``RandomState`` draws, as in the JAX package; the protocols run
+where ``qc`` runs, and their fits on ``qc.device``.
+
 The package imports neither JAX nor the JAX package: it keeps its own
 copies of the host helpers it needs. The quantum-volume entry points run on
 the card unless the caller passes ``device="cpu"``; the process-tomography

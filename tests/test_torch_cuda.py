@@ -864,3 +864,52 @@ def test_do_tomography_on_the_card(cuda):
     truth = kraus2choi(x[None])
     assert dm.process_fidelity(choi2pauli_liouville(truth),
                                choi2pauli_liouville(choi)).item() > 0.95
+
+
+def test_do_rb_on_the_card_equals_the_cpu(cuda):
+    """``do_rb`` (1Q) runs its circuits and its fit on the card; the
+    probabilities of its programs equal the CPU's (complex128)."""
+    from forest_benchmarking_tpu_torch.observable_estimation import (
+        generate_experiment_programs)
+    from forest_benchmarking_tpu_torch.randomized_benchmarking import do_rb
+    from forest_benchmarking_tpu_torch.sim import QVM
+    depths = [d for d in [2, 6, 10] for _ in range(3)]
+    card = QVM(seed=5)
+    assert card.device.type == "cuda"
+    decays, expts, results = do_rb(card, [(0,)], depths, num_shots=100,
+                                   random_seed=7)
+    assert 0.9 <= decays[(0,)] <= 1.1
+    cpu = QVM(device="cpu")
+    for expt in expts:
+        for p, q in zip(*generate_experiment_programs(expt)):
+            assert (card.probabilities(p, q).cpu()
+                    - cpu.probabilities(p, q)).abs().max() <= 1e-12
+
+
+def test_do_dfe_on_the_card_equals_the_cpu(cuda):
+    """``do_dfe`` of a 2Q Clifford from the enumerated group, process and
+    state, on the card: fidelity near one, and the probabilities of its
+    programs (calibration programs included) equal the CPU's."""
+    import numpy as np
+    from forest_benchmarking_tpu_torch.clifford import (
+        random_clifford_circuits)
+    from forest_benchmarking_tpu_torch.direct_fidelity_estimation import (
+        do_dfe)
+    from forest_benchmarking_tpu_torch.observable_estimation import (
+        generate_experiment_programs, get_calibration_program)
+    from forest_benchmarking_tpu_torch.sim import QVM
+    (program,), _ = random_clifford_circuits([0, 1], 1,
+                                             np.random.RandomState(12))
+    card, cpu = QVM(seed=3), QVM(device="cpu")
+    for kind in ("process", "state"):
+        (fid, _), expt, results = do_dfe(card, program, [0, 1], kind,
+                                         num_shots=500)
+        assert fid > 0.95
+        programs, meas = generate_experiment_programs(expt)
+        obs = list(dict.fromkeys(r.setting.observable.copy(coefficient=1.0)
+                                 for r in results))
+        programs += [get_calibration_program(o, program) for o in obs]
+        meas += [o.get_qubits() for o in obs]
+        for p, q in zip(programs, meas):
+            assert (card.probabilities(p, q).cpu()
+                    - cpu.probabilities(p, q)).abs().max() <= 1e-12

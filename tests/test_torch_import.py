@@ -37,7 +37,8 @@ print(json.dumps({
     "jax_package": [m for m in sys.modules if m == "forest_benchmarking_tpu"
                     or m.startswith("forest_benchmarking_tpu.")],
     "triton": "triton" in sys.modules,
-    "optional": [m for m in ("networkx", "pandas", "tqdm") if m in new],
+    "optional": [m for m in ("networkx", "pandas", "tqdm", "matplotlib")
+                 if any(n == m or n.startswith(m + ".") for n in new)],
     "cpp_extension": "torch.utils.cpp_extension" in sys.modules,
     "loaded": kernels.load.cache_info().currsize,
     "build_unchanged": files_before == (sorted(os.listdir(build))
@@ -65,7 +66,9 @@ def test_port_imports_without_jax_package_or_toolchain():
                  "ops.compose_superoperators", "ops.channel_approximation",
                  "ops.validate_operator", "ops.validate_superoperator",
                  "circuits", "paulis", "compilation", "observable_estimation",
-                 "sim", "sim.density", "sim.executor", "sim.qvm"):
+                 "sim", "sim.density", "sim.executor", "sim.qvm",
+                 "clifford", "direct_fidelity_estimation",
+                 "robust_phase_estimation", "readout"):
         assert f"forest_benchmarking_tpu_torch.{name}" in info["names"]
     assert info["jax"] == []
     assert info["jax_package"] == []
@@ -133,3 +136,19 @@ def test_sim_package_reexports_the_jax_names():
               and n not in ("density", "statevector", "qvm", "executor",
                             "noise")}
     assert public and all(hasattr(sim, n) for n in public)
+
+
+PROTOCOL_MODULES = ("clifford", "randomized_benchmarking", "qubit_spectroscopy",
+                    "direct_fidelity_estimation", "robust_phase_estimation",
+                    "readout")
+
+
+def test_protocol_modules_carry_the_jax_packages_public_names():
+    """The six modules of the Clifford-engine slice have the JAX modules'
+    whole ``__all__``, in order, and every name is defined."""
+    import importlib
+    for name in PROTOCOL_MODULES:
+        ours = importlib.import_module(f"forest_benchmarking_tpu_torch.{name}")
+        theirs = importlib.import_module(f"forest_benchmarking_tpu.{name}")
+        assert ours.__all__ == theirs.__all__, name
+        assert all(hasattr(ours, attr) for attr in ours.__all__), name
