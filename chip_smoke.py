@@ -3,8 +3,10 @@
 tomography (BASELINE config 2), batched quantum volume (config 5), batched
 1Q process tomography, the per-problem process-MLE routes, the Jacobi CP
 projection, batched state tomography (config 1), batched RB decay fits
-(config 3), channel distances with batched diamond norms (config 4) and the
-tomography protocol end to end on the port's QVM (``do_tomography``).
+(config 3), channel distances with batched diamond norms (config 4), the
+tomography protocol end to end on the port's QVM (``do_tomography``), the
+Clifford-engine protocols, and quantum volume from circuits (config 5),
+entangled states, the ripple-carry adder and the sharded entry points.
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
@@ -271,8 +273,49 @@ Phases, each of which must pass:
    stage timed, the simulation profiled, and exact survivals of a sample of
    sequences on the card within 1e-12 of the CPU's.
 
+19. this slice on the card, the port's QVM in complex64, with the launch
+   counters zeroed before each path and read after it. (a) BASELINE config
+   5 from circuits: ``measure_quantum_volume`` on 8 qubits at the JAX
+   package's defaults (100 circuits, 1000 shots, depths 2-8, 700
+   circuits, ``RandomState(0)``), each depth timed by stage (drawing,
+   programs, ``qvm.run``, heavy sets, the shot count on the host) with
+   circuits/s and the executor cache's hits and misses, and a profiled
+   sample of 5 circuits a depth (launches, synchronizations, busy time a
+   program); it launches no hand kernel. Then
+   ``measure_quantum_volume_batched`` at the same sizes on the card (one
+   ideal-kernel launch a depth). At every depth the two heavy-output
+   probabilities differ by at most the sum of their 2-sigma widths, and
+   both give QV 2^8. (b) the same with 2% depolarizing on each qubit of
+   every ``QVGATE`` (``define_noisy_gate``; the per-circuit path takes the
+   QVM's density route), ``stop_when_fail``, against the batched path with
+   the same Kraus stack (density to depth 6, the trajectory kernel from 7):
+   the same bar at the depths both reached, QV below 2^8 for both. (c) the
+   router: ``topology_restricted_program_generator`` on an 8-qubit line
+   with 50% depolarizing on each qubit of every SWAP, depth 5, 100
+   circuits: every 2Q gate of the routed circuits on a line edge, and the
+   heavy-output probability below the all-to-all run's. (d) GHZ on a
+   branching 8-qubit tree (share of 2000 shots > 0.99), the 8-cycle graph
+   state's stabilizers within 1e-5 of 1, and
+   ``compiled_parametric_graph_state``: natives only, its probabilities on
+   the card within 1e-5 of the uncompiled program's on the CPU. (e)
+   ``get_n_bit_adder_results`` for 3 bits, 64 summand pairs, in the Z and
+   X bases (every success probability 1) and with the adder example's
+   noisy readout (mean success printed), with circuits/s and cache misses.
+   (f) the sharded entry points on ``make_mesh()`` (one device on a
+   one-card machine) and on a mesh that repeats the card twice (its shards
+   run one after the other): ``apg_fused_sharded`` at B = 16384 (headline
+   schedule) bitwise equal to ``apg_fused``, one kernel launch a shard, by
+   CUDA events; ``sample_heavy_outputs_sharded`` at depth 8, C = 1600,
+   ideal and by trajectories (T = 1000), bitwise equal to the per-shard
+   ``sample_heavy_outputs_batched`` runs with ``fold_in``, one launch of
+   each kernel a shard; ``dnorm_fused_sharded`` at B = 2048 (2Q BCSZ, Kraus
+   rank 16) within 1e-5 of ``dnorm_fused``, on the host clock; and
+   ``batch_sharded`` around ``simulate_rb_survival_batched`` within 1e-12
+   of the unsharded run.
+
 Before it, one JSON line ``{"tomography": ...}`` holds phase 17's figures,
-and one ``{"protocols": ...}`` phase 18's.
+one ``{"protocols": ...}`` phase 18's and one ``{"slice13": ...}`` phase
+19's.
 The second-to-last line is the per-kernel JSON record: ``launches`` from
 the main paths; ``ms``/``plain_ms``: the kernel alone and the plain version
 at the main path's size (APG: headline schedule); ``bound_ms``: the larger
@@ -1877,6 +1920,471 @@ def phase_protocols(card: str, dev: torch.device) -> dict:
     print(f"phase 18: {record['phase_s']:.1f} s")
     return record
 
+S13_SEED = SEED + 19
+QV13_QUBITS = 8             # BASELINE config 5: quantum volume to 8 qubits
+QV13_CIRCUITS = 100         # the JAX package's defaults for circuits, shots
+QV13_SHOTS = 1000
+QV13_PROFILED = 5           # circuits a depth of the profiled sample
+ROUTER_DEPTH = 5
+ROUTER_SWAP_DEPOL = 0.5     # 1Q depolarizing on each qubit of a SWAP
+GHZ_TREE = ((0, 1), (0, 2), (1, 3), (1, 4), (2, 5), (2, 6), (5, 7))
+GHZ_SHOTS = 2000
+CYCLE = 8
+STABILIZER_BAR = 1e-5       # complex64 expectations against 1
+ADDER_BITS = 3
+ADDER_SHOTS = 100
+ADDER_READOUT = (0.95, 0.92)   # p00, p11 of the adder example
+RB_SHARD_DEPTHS = (2, 6, 10, 16)
+
+
+def two_qubit_depolarizing(noise, p: float) -> np.ndarray:
+    """The (16, 4, 4) Kraus stack of 1Q depolarizing ``p`` on each qubit of
+    a pair (the JAX suite's noisy-QV construction)."""
+    ks = noise.depolarizing_kraus_map(p)
+    return np.stack([np.kron(a, b) for a in ks for b in ks])
+
+
+def noisy_qvm(qvm_cls, gate: str, kraus: np.ndarray, **kw):
+    """A QVM that attaches ``kraus`` after every ``gate`` of each circuit it
+    runs (the JAX suite's ``NoisyQVM``)."""
+    class Noisy(qvm_cls):
+        def run(self, circuit, qubits, num_shots):
+            noisy = circuit.copy()
+            noisy.define_noisy_gate(gate, None, list(kraus))
+            return super().run(noisy, qubits, num_shots)
+    return Noisy(**kw)
+
+
+@contextlib.contextmanager
+def per_depth_clock(qv, qvm, log):
+    """For the block, every ``sample_rand_circuits_for_heavy_out`` call of
+    ``measure_quantum_volume`` appends to ``log`` its depth, host seconds,
+    circuits, the executor cache's hits and misses, and the host seconds of
+    its stages: drawing the circuits, building the programs, ``qvm.run``
+    (through a synchronize) and the heavy sets; the rest of the call is
+    the shot count on the host (``bit_array_to_int`` a shot)."""
+    from forest_benchmarking_tpu_torch.sim.executor import (
+        executor_cache_info)
+    real = qv.sample_rand_circuits_for_heavy_out
+    stages = {"generate_abstract_qv_circuit": "generation",
+              "abstract_circuit_to_circuit": "program",
+              "collect_heavy_outputs": "heavy_sets"}
+    real_run = qvm.run
+
+    def sample(q, qubits, depth, *args, **kwargs):
+        before, planned = executor_cache_info(), Planned(qvm)
+        sim = [0.0]
+
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = real_run(*a, **k)
+            torch.cuda.synchronize()
+            sim[0] += time.perf_counter() - t0
+            return out
+        qvm.run = run
+        try:
+            with module_clock(qv, stages) as clock:
+                t0 = time.perf_counter()
+                out = real(q, qubits, depth, *args, **kwargs)
+                wall = time.perf_counter() - t0
+        finally:
+            del qvm.run, qvm._plan
+        after = executor_cache_info()
+        parts = dict(clock, simulation=sim[0])
+        log.append(dict(depth=int(depth), host_s=wall,
+                        circuits=planned.count,
+                        circuits_per_s=planned.count / wall,
+                        cache_hits=after["hits"] - before["hits"],
+                        cache_misses=after["misses"] - before["misses"],
+                        **{f"{k}_s": v for k, v in parts.items()},
+                        shot_count_s=wall - sum(parts.values())))
+        return out
+
+    qv.sample_rand_circuits_for_heavy_out = sample
+    try:
+        yield log
+    finally:
+        qv.sample_rand_circuits_for_heavy_out = real
+
+
+def within_widths(per_circuit, batched, name):
+    """Hold two QV scans depth by depth: the heavy-output probabilities
+    differ by at most the sum of their 2-sigma widths (probability - lower
+    bound) at every depth both reached. Returns the depths compared."""
+    depths = sorted(set(per_circuit) & set(batched))
+    check(bool(depths), f"{name}: no common depth")
+    for d in depths:
+        (p1, lb1), (p2, lb2) = per_circuit[d], batched[d]
+        gap, bar = abs(p1 - p2), (p1 - lb1) + (p2 - lb2)
+        print(f"  {name} depth {d}: per-circuit {p1:.4f} (lower bound "
+              f"{lb1:.4f}), batched {p2:.4f} ({lb2:.4f}), gap {gap:.4f}, "
+              f"bar {bar:.4f}")
+        check(gap <= bar, f"{name} depth {d}: gap {gap} > {bar}")
+    return depths
+
+
+def phase_slice13(card: str, dev: torch.device) -> dict:
+    """19. Entangled states, the adder, quantum volume from circuits and the
+    sharded entry points on the card; see the module docstring."""
+    t_phase = time.perf_counter()
+    from forest_benchmarking_tpu_torch import (
+        classical_logic, entangled_states, quantum_volume as qv,
+        randomized_benchmarking as rb)
+    from forest_benchmarking_tpu_torch.benchmarks import (
+        process_tomo_A_matrix, synth_process_datasets)
+    from forest_benchmarking_tpu_torch.ops import (
+        lanes_apg, lanes_dnorm, pallas_traj)
+    from forest_benchmarking_tpu_torch.ops.random_operators import (
+        rand_map_with_BCSZ_dist)
+    from forest_benchmarking_tpu_torch.parallel import (
+        batch_sharded, fold_in, make_mesh)
+    from forest_benchmarking_tpu_torch.paulis import sX, sZ
+    from forest_benchmarking_tpu_torch.sim import QVM, noise
+    from forest_benchmarking_tpu_torch.sim.executor import (
+        executor_cache_info)
+    record = {}
+    counters = port_launches()
+    ideal, traj = pallas_traj.ideal_probs, pallas_traj.traj_probs
+    qubits = list(range(QV13_QUBITS))
+
+    # (a) config 5 from circuits, ideal: the per-circuit path on the card's
+    # QVM against the batched kernel path
+    t_part = time.perf_counter()
+    qvm = QVM(seed=S13_SEED, dtype=torch.complex64, device=dev)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    log = []
+    with per_depth_clock(qv, qvm, log):
+        t0 = time.perf_counter()
+        res_c = qv.measure_quantum_volume(
+            qvm, qubits=range(QV13_QUBITS), num_circuits=QV13_CIRCUITS,
+            num_shots=QV13_SHOTS, rng=np.random.RandomState(0),
+            stop_when_fail=False)
+        wall_c = time.perf_counter() - t0
+    hand = [c.launches for c in counters]
+    check(sum(hand) == 0, f"the per-circuit QV path launched {hand}")
+    t0 = time.perf_counter()
+    res_b = qv.measure_quantum_volume_batched(
+        max_depth=QV13_QUBITS, num_circuits=QV13_CIRCUITS,
+        num_shots=QV13_SHOTS, stop_when_fail=False, device=dev)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches_b = ideal.launches
+    for row in log:
+        d = row["depth"]
+        launches, busy, syncs, _, _ = profiled(
+            lambda: qv.sample_rand_circuits_for_heavy_out(
+                qvm, qubits, d, None, QV13_PROFILED, QV13_SHOTS,
+                rng=np.random.RandomState(d)))
+        row.update(launches_per_program=launches / QV13_PROFILED,
+                   syncs_per_program=syncs / QV13_PROFILED,
+                   busy_ms_per_program=busy / QV13_PROFILED,
+                   probability=res_c[d][0], lower_bound=res_c[d][1])
+        print(f"timing QV from circuits depth {d}: {row['circuits']} "
+              f"circuits in {row['host_s']:.3f} s, "
+              f"{row['circuits_per_s']:.1f} circuits/s (generation "
+              f"{row['generation_s']:.3f} s, programs {row['program_s']:.3f} "
+              f"s, qvm.run {row['simulation_s']:.3f} s, heavy sets "
+              f"{row['heavy_sets_s']:.3f} s, shot count "
+              f"{row['shot_count_s']:.3f} s); executor cache "
+              f"{row['cache_hits']} hits, {row['cache_misses']} misses; "
+              f"profiled sample: {row['launches_per_program']:.1f} launches, "
+              f"{row['syncs_per_program']:.1f} synchronizations, busy "
+              f"{row['busy_ms_per_program']:.3f} ms a program on {card}")
+    qv_c, qv_b = (int(qv.extract_quantum_volume_from_results(r))
+                  for r in (res_c, res_b))
+    print(f"main path config 5 from circuits: per-circuit "
+          f"{QV13_CIRCUITS * len(res_c)} circuits in {wall_c:.3f} s "
+          f"({QV13_CIRCUITS * len(res_c) / wall_c:.1f} circuits/s), QV "
+          f"{qv_c}; batched kernel path {wall_b:.3f} s, {launches_b} ideal "
+          f"kernel launches, QV {qv_b} on {card}")
+    within_widths(res_c, res_b, "ideal")
+    check(qv_c == qv_b == 2 ** QV13_QUBITS, f"ideal QV {qv_c} / {qv_b}")
+    check(launches_b == QV13_QUBITS - 1,
+          f"batched ideal QV: {launches_b} ideal kernel launches")
+    record["ideal"] = dict(per_depth=log, host_s=wall_c, batched_s=wall_b,
+                           ideal_launches=launches_b, qv=qv_c,
+                           part_s=time.perf_counter() - t_part)
+
+    # (b) config 5 from circuits, noisy: 2Q depolarizing on every QVGATE
+    t_part = time.perf_counter()
+    kraus = two_qubit_depolarizing(noise, QV_DEPOL)
+    nqvm = noisy_qvm(QVM, "QVGATE", kraus, seed=S13_SEED + 1,
+                     dtype=torch.complex64, device=dev)
+    for c in counters:
+        c.launches = 0
+    log_n = []
+    with per_depth_clock(qv, nqvm, log_n):
+        t0 = time.perf_counter()
+        res_nc = qv.measure_quantum_volume(
+            nqvm, qubits=range(QV13_QUBITS), num_circuits=QV13_CIRCUITS,
+            num_shots=QV13_SHOTS, rng=np.random.RandomState(1))
+        wall_nc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_nb = qv.measure_quantum_volume_batched(
+        torch.Generator(device=dev).manual_seed(S13_SEED + 2),
+        max_depth=QV13_QUBITS, num_circuits=QV13_CIRCUITS,
+        num_shots=QV13_SHOTS, kraus=kraus, device=dev)
+    torch.cuda.synchronize()
+    wall_nb = time.perf_counter() - t0
+    for row in log_n:
+        print(f"timing noisy QV from circuits depth {row['depth']}: "
+              f"{row['circuits_per_s']:.1f} circuits/s (qvm.run "
+              f"{row['simulation_s']:.3f} s of {row['host_s']:.3f}); cache "
+              f"{row['cache_hits']} hits, {row['cache_misses']} misses")
+    qv_nc, qv_nb = (int(qv.extract_quantum_volume_from_results(r))
+                    for r in (res_nc, res_nb))
+    print(f"main path noisy config 5 (p = {QV_DEPOL}): per-circuit depths "
+          f"{sorted(map(int, res_nc))} in {wall_nc:.3f} s, QV {qv_nc}; batched "
+          f"depths "
+          f"{sorted(res_nb)} in {wall_nb:.3f} s, QV {qv_nb}, kernel "
+          f"launches ideal {ideal.launches} trajectory {traj.launches} on "
+          f"{card}")
+    within_widths(res_nc, res_nb, "noisy")
+    check(qv_nc < 2 ** QV13_QUBITS and qv_nb < 2 ** QV13_QUBITS,
+          f"noisy QV {qv_nc} / {qv_nb}")
+    check(ideal.launches == len(res_nb), f"noisy batched QV: "
+          f"{ideal.launches} ideal launches for {len(res_nb)} depths")
+    check(traj.launches == sum(d > 6 for d in res_nb),
+          f"noisy batched QV: {traj.launches} trajectory launches")
+    record["noisy"] = dict(per_depth=log_n, host_s=wall_nc,
+                           batched_s=wall_nb, qv=qv_nc, qv_batched=qv_nb,
+                           results={int(d): v for d, v in res_nc.items()},
+                           results_batched={int(d): v
+                                            for d, v in res_nb.items()},
+                           part_s=time.perf_counter() - t_part)
+
+    # (c) the router: an 8-qubit line with noisy SWAPs against all-to-all
+    t_part = time.perf_counter()
+    line = [(q, q + 1) for q in range(QV13_QUBITS - 1)]
+    router = qv.topology_restricted_program_generator(line)
+    routed = []
+
+    def recording(*args):
+        routed.append(router(*args))
+        return routed[-1]
+    swap_kraus = two_qubit_depolarizing(noise, ROUTER_SWAP_DEPOL)
+    runs = {}
+    for name, gen_ in (("line", recording), ("all-to-all", None)):
+        sqvm = noisy_qvm(QVM, "SWAP", swap_kraus, seed=S13_SEED + 3,
+                         dtype=torch.complex64, device=dev)
+        t0 = time.perf_counter()
+        runs[name] = qv.measure_quantum_volume(
+            sqvm, qubits=qubits, program_generator=gen_,
+            num_circuits=QV13_CIRCUITS, num_shots=QV13_SHOTS,
+            depths=np.array([ROUTER_DEPTH]),
+            rng=np.random.RandomState(2))[ROUTER_DEPTH]
+        runs[name] += (time.perf_counter() - t0,)
+    swaps = sum(g.name == "SWAP" for c in routed for g in c.gates)
+    off_line = [g for c in routed for g in c.gates
+                if len(g.qubits) == 2 and abs(g.qubits[0] - g.qubits[1]) != 1]
+    print(f"router: depth {ROUTER_DEPTH} on an {QV13_QUBITS}-qubit line, "
+          f"{len(routed)} circuits, {swaps} SWAPs, heavy-output probability "
+          f"{runs['line'][0]:.4f} ({runs['line'][2]:.3f} s) against "
+          f"all-to-all {runs['all-to-all'][0]:.4f} "
+          f"({runs['all-to-all'][2]:.3f} s); {len(off_line)} 2Q gates off "
+          f"the line on {card}")
+    check(len(routed) == QV13_CIRCUITS and not off_line,
+          f"router: {len(off_line)} gates off the line")
+    check(runs["line"][0] < runs["all-to-all"][0],
+          f"router: line {runs['line'][0]} not below all-to-all "
+          f"{runs['all-to-all'][0]}")
+    record["router"] = dict(swaps=swaps, line=runs["line"],
+                            all_to_all=runs["all-to-all"],
+                            part_s=time.perf_counter() - t_part)
+
+    # (d) entangled states on the card
+    t_part = time.perf_counter()
+    program, nodes = entangled_states.create_ghz_program(GHZ_TREE)
+    stats = entangled_states.ghz_state_statistics(
+        qvm.run(program, nodes, GHZ_SHOTS))
+    share = stats["bell"] / stats["total"]
+    cycle = [(q, (q + 1) % CYCLE) for q in range(CYCLE)]
+    graph_state = entangled_states.create_graph_state(cycle)
+    stab = []
+    for v in range(CYCLE):
+        term = sX(v) * sZ((v - 1) % CYCLE) * sZ((v + 1) % CYCLE)
+        stab.append(qvm.expectation(graph_state, list(range(CYCLE)), term))
+    stab_err = max(abs(x - 1) for x in stab)
+    compiled, meas = entangled_states.compiled_parametric_graph_state(
+        cycle, 0, theta=0.5)
+    names = sorted({g.name for g in compiled.gates})
+    uncompiled = graph_state + entangled_states.measure_graph_state(
+        cycle, 0, theta=0.5)[0]
+    comp_err = (qvm.probabilities(compiled, meas).cpu().double()
+                - QVM(device="cpu").probabilities(uncompiled, meas)
+                ).abs().max().item()
+    print(f"entangled states: GHZ on the {len(nodes)}-qubit tree "
+          f"{GHZ_TREE}: share {share:.4f} of {GHZ_SHOTS} shots; "
+          f"{CYCLE}-cycle graph state: max |<K_v> - 1| = {stab_err:.2e}; "
+          f"compiled graph state ({len(compiled.gates)} gates, {names}): "
+          f"card against the uncompiled program on the CPU {comp_err:.2e} "
+          f"on {card}")
+    check(share > 0.99, f"GHZ share {share}")
+    check(stab_err <= STABILIZER_BAR, f"graph-state stabilizers {stab}")
+    check(set(names) <= {"RX", "RZ", "CZ", "XY", "I"},
+          f"compiled graph state gates {names}")
+    check(comp_err <= STABILIZER_BAR, f"compiled graph state {comp_err}")
+    record["entangled"] = dict(ghz_share=share, stabilizer_err=stab_err,
+                               compiled_err=comp_err,
+                               part_s=time.perf_counter() - t_part)
+
+    # (e) the 3-bit adder in both bases, then with noisy readout
+    t_part = time.perf_counter()
+    adder, hamming = {}, []
+    for name, run_qvm, x_basis in (
+            ("Z", qvm, False), ("X", qvm, True),
+            ("Z readout", QVM(seed=S13_SEED + 4, dtype=torch.complex64,
+                              device=dev), False)):
+        if name == "Z readout":
+            real_run = run_qvm.run
+
+            def with_readout(circuit, qs, shots, real_run=real_run):
+                noisy = circuit.copy()
+                for q in qs:
+                    noisy.define_noisy_readout(q, *ADDER_READOUT)
+                return real_run(noisy, qs, shots)
+            run_qvm.run = with_readout
+        planned, before = Planned(run_qvm), executor_cache_info()
+        t0 = time.perf_counter()
+        results = classical_logic.get_n_bit_adder_results(
+            run_qvm, ADDER_BITS, in_x_basis=x_basis, num_shots=ADDER_SHOTS)
+        wall = time.perf_counter() - t0
+        del run_qvm._plan
+        after = executor_cache_info()
+        probs = classical_logic.get_success_probabilities_from_results(
+            results)
+        adder[name] = dict(
+            pairs=len(probs), mean_success=float(np.mean(probs)),
+            min_success=float(np.min(probs)), host_s=wall,
+            circuits_per_s=planned.count / wall,
+            cache_hits=after["hits"] - before["hits"],
+            cache_misses=after["misses"] - before["misses"])
+        hamming = classical_logic.get_error_hamming_distributions_from_results(
+            results)
+        print(f"adder {ADDER_BITS}-bit {name} basis: {len(probs)} summand "
+              f"pairs, success mean {np.mean(probs):.4f} min "
+              f"{np.min(probs):.4f}; {planned.count} circuits in {wall:.3f} "
+              f"s ({planned.count / wall:.1f} circuits/s), executor cache "
+              f"{adder[name]['cache_hits']} hits, "
+              f"{adder[name]['cache_misses']} misses on {card}")
+        check(len(probs) == 4 ** ADDER_BITS, f"adder {name}: {len(probs)}")
+        if name != "Z readout":
+            check(min(probs) == 1.0, f"adder {name}: success {min(probs)}")
+    print("adder with noisy readout: mean error Hamming-weight "
+          f"distribution {np.round(np.mean(hamming, axis=0), 4).tolist()}")
+    record["adder"] = dict(adder, part_s=time.perf_counter() - t_part)
+
+    # (f) the sharded entry points, with the kernels
+    t_part = time.perf_counter()
+    mesh1, mesh2 = make_mesh(), make_mesh([dev, dev])
+    print(f"sharding: make_mesh() has {len(mesh1.devices)} device(s); the "
+          f"2-shard mesh repeats {dev} (its shards run one after the other "
+          f"on one stream)")
+    g = torch.Generator(device=dev).manual_seed(S13_SEED + 5)
+    a = torch.tensor(process_tomo_A_matrix(2), dtype=torch.complex64,
+                     device=dev)
+    a_pinv = torch.linalg.pinv(a)
+    n, _ = synth_process_datasets(g, a, 4, BATCH, SHOTS)
+    cfg = lanes_apg.HEADLINE_TUNED_2Q
+    ms_u, want = cuda_ms(lambda: lanes_apg.apg_fused(a, n, 4, a_pinv=a_pinv,
+                                                     **cfg))
+    rec_f = {"apg_unsharded_ms": ms_u}
+    for mesh in (mesh1, mesh2):
+        shards = len(mesh.devices)
+        for c in counters:
+            c.launches = 0
+        got = lanes_apg.apg_fused_sharded(a, n, mesh, dim=4, a_pinv=a_pinv,
+                                          **cfg)
+        torch.cuda.synchronize()
+        moved = lanes_apg.apg_fused.launches
+        ms_s, _ = cuda_ms(lambda: lanes_apg.apg_fused_sharded(
+            a, n, mesh, dim=4, a_pinv=a_pinv, **cfg))
+        equal = torch.equal(got, want)
+        print(f"apg_fused_sharded: B={BATCH} headline on {shards} shard(s): "
+              f"{moved} kernel launches, bitwise equal to apg_fused: "
+              f"{equal} (max |diff| {(got - want).abs().max().item():.3e}); "
+              f"{ms_s:.3f} ms against {ms_u:.3f} ms unsharded (CUDA events) "
+              f"on {card}")
+        check(moved == shards, f"apg_fused_sharded: {moved} launches for "
+              f"{shards} shards")
+        check(equal, f"apg_fused_sharded on {shards} shards differs")
+        rec_f[f"apg_{shards}_shards_ms"] = ms_s
+
+    kraus_t = torch.tensor(two_qubit_depolarizing(noise, QV_DEPOL),
+                           dtype=torch.complex64, device=dev)
+    parent = torch.Generator(device=dev).manual_seed(S13_SEED + 6)
+    per = QV_CIRCUITS // 2
+    for label, kw in (("ideal", {}), ("trajectory", dict(
+            kraus=kraus_t, noisy_method="trajectory",
+            num_trajectories=QV_TRAJ))):
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        got = qv.sample_heavy_outputs_sharded(
+            parent, mesh2, depth=QV_DEPTH, num_circuits=QV_CIRCUITS,
+            num_shots=QV_SHOTS, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = (ideal.launches, traj.launches)
+        want = torch.cat([qv.sample_heavy_outputs_batched(
+            fold_in(parent, i, dev), QV_DEPTH, per, QV_SHOTS, device=dev,
+            **kw) for i in range(2)])
+        equal = torch.equal(got, want)
+        prob = got.sum().item() / (QV_CIRCUITS * QV_SHOTS)
+        print(f"sample_heavy_outputs_sharded {label}: depth {QV_DEPTH}, "
+              f"C={QV_CIRCUITS} on 2 shards, heavy-output probability "
+              f"{prob:.4f}, launches ideal {moved[0]} trajectory "
+              f"{moved[1]}, bitwise equal to the per-shard runs: {equal}; "
+              f"host clock {1e3 * wall:.3f} ms on {card}")
+        check(equal, f"sample_heavy_outputs_sharded {label} differs")
+        check(moved == (2, 2 if kw else 0), f"sharded QV {label}: {moved}")
+        rec_f[f"qv_{label}"] = dict(probability=prob, host_ms=1e3 * wall,
+                                    launches=moved)
+
+    c0, c1 = (rand_map_with_BCSZ_dist(g, 4, 16, batch=(DNORM_BATCH,),
+                                      dtype=torch.float32) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = lanes_dnorm.dnorm_fused(c0, c1)
+    torch.cuda.synchronize()
+    wall_u = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = lanes_dnorm.dnorm_fused_sharded(c0, c1, mesh2)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    err = (got - want).abs().max().item()
+    print(f"dnorm_fused_sharded: B={DNORM_BATCH} on 2 shards, max |sharded "
+          f"- unsharded| {err:.3e} (bar {DNORM_BAR}); host clock {wall_s:.3f}"
+          f" s against {wall_u:.3f} s unsharded on {card}")
+    check(got.shape == want.shape and err <= DNORM_BAR,
+          f"dnorm_fused_sharded: {err}")
+    rec_f.update(dnorm_err=err, dnorm_sharded_s=wall_s,
+                 dnorm_unsharded_s=wall_u)
+
+    seqs = rb.generate_rb_experiment_sequences(
+        (0,), [d for d in RB_SHARD_DEPTHS for _ in range(4)], random_seed=5)
+    ptms, lengths = rb.sequences_to_ptm_stack(seqs, (0,))
+    ptms = torch.tensor(ptms, device=dev)
+    lengths = torch.tensor(lengths, device=dev)
+    noise_ptm = torch.diag(torch.tensor([1.0, 0.9, 0.9, 0.9],
+                                        dtype=torch.float64, device=dev))
+    want = rb.simulate_rb_survival_batched(ptms, noise_ptm, lengths=lengths)
+    got = batch_sharded(lambda shared, batched: rb.simulate_rb_survival_batched(
+        batched[0], shared, lengths=batched[1]), mesh2)(
+            noise_ptm, (ptms, lengths))
+    err = (got - want).abs().max().item()
+    print(f"batch_sharded RB simulation: {len(seqs)} sequences on 2 shards, "
+          f"max |sharded - unsharded| {err:.3e} (bar 1e-12) on {card}")
+    check(err <= 1e-12, f"batch_sharded RB: {err}")
+    rec_f.update(rb_err=err, part_s=time.perf_counter() - t_part)
+    record["sharding"] = rec_f
+    record["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 19: {record['phase_s']:.1f} s")
+    return record
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2556,6 +3064,10 @@ def main() -> int:
     # kernel on these paths)
     proto_record = phase_protocols(card, dev)
 
+    # 19. entangled states, the adder, QV from circuits and the sharded
+    # entry points (the APG, ideal and trajectory kernels in part (f))
+    slice13_record = phase_slice13(card, dev)
+
     def record(name, source, replaces, launch_count, err, ms_k, ms_p, bound,
                library_ms=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -2569,6 +3081,7 @@ def main() -> int:
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"tomography": tomo_record}))
     print(json.dumps({"protocols": proto_record}))
+    print(json.dumps({"slice13": slice13_record}, default=float))
     print(json.dumps({"kernels": [
         record("apg_fused", apg_src,
                "forest_benchmarking_tpu/ops/lanes_apg.py:674", launches,

@@ -76,6 +76,21 @@ T1, T2, Rabi and CZ-Ramsey generators, ``do_t1_or_t2``), and
 numpy ``RandomState`` draws, as in the JAX package; the protocols run
 where ``qc`` runs, and their fits on ``qc.device``.
 
+Slice 13 covers the rest of the protocols and the sharded entry points:
+``entangled_states`` (GHZ trees, graph states) and ``classical_logic``
+(the ripple-carry adder and its primitives), which take edge lists or any
+graph object with ``nodes`` and ``edges`` through the port's own graph
+type ``_graph._Graph`` (in ``networkx``'s orders; the package does not
+import ``networkx``); the per-circuit half of ``quantum_volume``
+(``measure_quantum_volume`` on the QVM, numpy ``RandomState`` circuits as
+in the JAX package, the SWAP router); and ``parallel`` with
+``ops.lanes_apg.apg_fused_sharded``, ``ops.lanes_dnorm.dnorm_fused_sharded``
+and ``quantum_volume.sample_heavy_outputs_sharded``: one process splits the
+batch over a mesh of devices (``parallel.make_mesh``, every card by
+default; a list such as ``[cpu] * 8`` otherwise), runs each shard on its
+device, and concatenates the results on the first one, bitwise those of the
+unsharded call where the solve is elementwise in the batch.
+
 The package imports neither JAX nor the JAX package: it keeps its own
 copies of the host helpers it needs. The quantum-volume entry points run on
 the card unless the caller passes ``device="cpu"``; the process-tomography

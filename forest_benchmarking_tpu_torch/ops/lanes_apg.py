@@ -32,7 +32,8 @@ from forest_benchmarking_tpu_torch import kernels
 
 __all__ = [
     "raster_a_matrix", "linear_inversion_start", "apg_fused_reference",
-    "apg_fused_kernel", "apg_fused", "apg_fused_flops_per_solve",
+    "apg_fused_kernel", "apg_fused", "apg_fused_sharded",
+    "apg_fused_flops_per_solve",
     "apg_fused_l2_bytes_per_solve", "full_f32_matmul",
     "PARITY_PHASES", "PARITY_TUNED_2Q", "HEADLINE_TUNED_2Q",
 ]
@@ -260,13 +261,32 @@ def raster_a_matrix(a: torch.Tensor, d2: int) -> torch.Tensor:
     return a.reshape(-1, d2, d2).transpose(1, 2).reshape(a.shape[0], d2 * d2)
 
 
+# rows of each block of the warm start's product on the card
+WARM_START_ROWS = 4096
+
+
 def linear_inversion_start(a_pinv: torch.Tensor, n_counts: torch.Tensor,
                            dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hermitian, trace-``dim`` linear-inversion estimates ``unvec(pinv(A) n)``
-    as (B, d2, d2) real/imag planes of ``a_pinv``'s real dtype."""
+    as (B, d2, d2) real/imag planes of ``a_pinv``'s real dtype.
+
+    On the card the product runs in blocks of ``WARM_START_ROWS`` rows, the
+    last one zero-padded: cuBLAS picks its kernel, and so its order of
+    summation, by the shape of the product (8192 rows summed otherwise than
+    4096 or 16384 on the H100), and a problem's warm start must not depend
+    on the size of the batch it comes in, or a sharded solve would part
+    from the unsharded one."""
     d2 = dim * dim
+    n = n_counts.to(a_pinv.dtype)
     with full_f32_matmul():
-        x0 = n_counts.to(a_pinv.dtype) @ a_pinv.T            # (B, d4), vec order
+        if n.is_cuda:
+            b = n.shape[0]
+            n = torch.cat([n, n.new_zeros((-b % WARM_START_ROWS,
+                                           n.shape[1]))])
+            x0 = torch.cat([blk @ a_pinv.T
+                            for blk in n.split(WARM_START_ROWS)])[:b]
+        else:
+            x0 = n @ a_pinv.T                                # (B, d4), vec order
     rho0 = x0.reshape(-1, d2, d2).transpose(1, 2)            # unvec
     rho0 = (rho0 + rho0.transpose(1, 2).conj()) / 2
     tr = torch.diagonal(rho0, dim1=1, dim2=2).sum(-1).real
@@ -540,3 +560,33 @@ def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,
 
 
 apg_fused.launches = 0
+
+
+def apg_fused_sharded(a: torch.Tensor, n_counts: torch.Tensor, mesh,
+                      axis_name: str = "batch", **kw) -> torch.Tensor:
+    """Run :func:`apg_fused` with the problem batch sharded across a mesh.
+
+    Each device of the mesh runs the whole fused solve (on the card: the
+    CUDA kernel, one launch a shard) on its shard of the counts, with the
+    A-matrix (and any tensor in ``kw``, such as ``a_pinv``) copied to it;
+    the estimates are concatenated on the mesh's first device. The solve is
+    elementwise in the batch, so the result is bitwise that of the
+    unsharded call.
+
+    :param a: (R, d4) complex A-matrix (copied to every device).
+    :param n_counts: (B, R) normalized counts; B must divide evenly by the
+        mesh size.
+    :param mesh: a :class:`~..parallel.Mesh` with ``axis_name`` as its
+        batch axis, e.g. from ``parallel.make_mesh()``.
+    :param kw: forwarded to :func:`apg_fused` (``dim`` is required).
+    """
+    from forest_benchmarking_tpu_torch.parallel import shard_map_batched
+
+    if n_counts.shape[0] % mesh.shape[axis_name] != 0:
+        raise ValueError(
+            f"batch {n_counts.shape[0]} must be divisible by the mesh axis "
+            f"{axis_name!r} size {mesh.shape[axis_name]}")
+    mapped = shard_map_batched(lambda a_, n_, kw_: apg_fused(a_, n_, **kw_),
+                               mesh, batched_argnums=(1,),
+                               axis_name=axis_name)
+    return mapped(a, n_counts, kw)

@@ -39,7 +39,8 @@ import torch
 from forest_benchmarking_tpu_torch.ops.lanes_apg import (
     _cmm, _cmm_hconj_left, _hermitianize, _multi_sweep, full_f32_matmul)
 
-__all__ = ["dnorm_fused", "dnorm_planes", "dnorm_flops_per_problem"]
+__all__ = ["dnorm_fused", "dnorm_fused_sharded", "dnorm_planes",
+           "dnorm_flops_per_problem"]
 
 _B1, _B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -202,6 +203,33 @@ def dnorm_fused(choi0: torch.Tensor, choi1: torch.Tensor, *,
                         num_iters=num_iters, sweeps=sweeps,
                         init_sweeps=init_sweeps, final_sweeps=final_sweeps)
     return vals.reshape(batch)
+
+
+def dnorm_fused_sharded(choi0: torch.Tensor, choi1: torch.Tensor, mesh,
+                        axis_name: str = "batch", **kw) -> torch.Tensor:
+    """Run :func:`dnorm_fused` with the channel-pair batch sharded across a
+    device mesh (the idiom of ``lanes_apg.apg_fused_sharded``: the solve is
+    elementwise in the batch, so each device runs the whole planes solver
+    on its shard, and the values are concatenated on the mesh's first
+    device).
+
+    :param choi0, choi1: (B, n, n) Choi batches; B must divide evenly by the
+        mesh size.
+    :param mesh: a :class:`~..parallel.Mesh` with ``axis_name`` as its
+        batch axis, e.g. from ``parallel.make_mesh()``.
+    :param kw: forwarded to :func:`dnorm_fused` (e.g. ``dim``,
+        ``num_iters``).
+    """
+    from forest_benchmarking_tpu_torch.parallel import shard_map_batched
+
+    if choi0.shape[0] % mesh.shape[axis_name] != 0:
+        raise ValueError(
+            f"batch {choi0.shape[0]} must be divisible by the mesh axis "
+            f"{axis_name!r} size {mesh.shape[axis_name]}")
+    mapped = shard_map_batched(lambda c0, c1: dnorm_fused(c0, c1, **kw),
+                               mesh, batched_argnums=(0, 1),
+                               axis_name=axis_name)
+    return mapped(choi0, choi1)
 
 
 def dnorm_flops_per_problem(dim: int, num_iters: int = 96, sweeps: int = 1,

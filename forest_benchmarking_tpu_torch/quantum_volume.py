@@ -1,45 +1,258 @@
-"""Quantum volume measurement [QVol] (arXiv:1811.12926), batched paths.
+"""Quantum volume measurement [QVol] (arXiv:1811.12926).
 
-Port of the batched paths of ``forest_benchmarking_tpu/quantum_volume.py``:
-``_sample_perms``, the density-matrix forms (``_apply_2q_to_density``,
-``_apply_2q_channel_to_density``, ``_simulate_qv_circuit_density``,
-``_lift_2q``, ``_simulate_qv_circuit_density_lifted``),
-``sample_heavy_outputs_batched``, ``measure_quantum_volume_batched``,
-``calculate_prob_est_and_err`` and ``extract_quantum_volume_from_results``.
-Its ``_bit_permute_indices`` and ``_simulate_qv_circuit`` live in
-:mod:`.ops.pallas_traj`, beside the kernels that use them. The per-circuit
-host path (``measure_quantum_volume`` and its program generators) needs the
-simulator of ``sim/qvm`` and comes in a later slice.
+Port of ``forest_benchmarking_tpu/quantum_volume.py`` (reference parity:
+forest/benchmarking/quantum_volume.py — _naive_program_generator:21,
+collect_heavy_outputs:94, generate_abstract_qv_circuit:126,
+sample_rand_circuits_for_heavy_out:154, calculate_prob_est_and_err:211
+(eq. C3), measure_quantum_volume:234, count_heavy_hitters_sampled:322,
+get_prob_sample_heavy_by_depth:344, extract_quantum_volume_from_results:379
+(QV = 2^maxdepth)).
+
+Two halves:
+
+- the per-circuit path: ``generate_abstract_qv_circuit`` (numpy
+  ``RandomState`` draws, as in the JAX package, so the same ``rng`` gives
+  the same circuits), ``collect_heavy_outputs`` (host numpy),
+  ``abstract_circuit_to_circuit`` and the SWAP router
+  ``topology_restricted_program_generator``, and
+  ``measure_quantum_volume``, which runs every circuit where ``qc`` runs
+  (``QVM()``: the card) and counts heavy outputs on the host;
+- the batched paths: ``_sample_perms``, the density-matrix forms
+  (``_apply_2q_to_density``, ``_apply_2q_channel_to_density``,
+  ``_simulate_qv_circuit_density``, ``_lift_2q``,
+  ``_simulate_qv_circuit_density_lifted``), ``sample_heavy_outputs_batched``,
+  ``sample_heavy_outputs_sharded`` and ``measure_quantum_volume_batched``.
+  Their ``_bit_permute_indices`` and ``_simulate_qv_circuit`` live in
+  :mod:`.ops.pallas_traj`, beside the kernels that use them.
 
 Gate indexing as in the reference: layer gate j acts on qubits
-(perm[j], perm[j+1]); the state is permuted so that old qubit perm[i] sits
-at position i and the gates act at the static positions (j, j+1).
+(perm[j], perm[j+1]); the batched state is permuted so that old qubit
+perm[i] sits at position i and the gates act at the static positions
+(j, j+1).
 
-Single-circuit functions are written as in the JAX package and batched over
-circuits with ``torch.func.vmap``. The ideal probabilities and the
-trajectory evolution go through :mod:`.ops.pallas_traj`: its CUDA kernels
-on the card at the depths they take, its plain versions elsewhere
-(:func:`_use_kernels`). The entry points run on the card unless the caller
-passes ``device="cpu"``.
+Single-circuit functions of the batched paths are written as in the JAX
+package and batched over circuits with ``torch.func.vmap``. The ideal
+probabilities and the trajectory evolution go through
+:mod:`.ops.pallas_traj`: its CUDA kernels on the card at the depths they
+take, its plain versions elsewhere (:func:`_use_kernels`). The batched
+entry points run on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+import logging
+import warnings
+from statistics import median
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from forest_benchmarking_tpu_torch.circuits import Circuit, Gate
 from forest_benchmarking_tpu_torch.ops import pallas_traj
 from forest_benchmarking_tpu_torch.ops.pallas_traj import _bit_permute_indices
 from forest_benchmarking_tpu_torch.ops.lanes_apg import full_f32_matmul
 from forest_benchmarking_tpu_torch.ops.random_operators import (
     haar_rand_unitary)
-from forest_benchmarking_tpu_torch.utils import entry_device
+from forest_benchmarking_tpu_torch.utils import (
+    bit_array_to_int, entry_device, progress_iter)
 
-__all__ = ["sample_heavy_outputs_batched", "measure_quantum_volume_batched",
-           "calculate_prob_est_and_err",
-           "extract_quantum_volume_from_results"]
+log = logging.getLogger(__name__)
+
+__all__ = [
+    "generate_abstract_qv_circuit", "collect_heavy_outputs",
+    "abstract_circuit_to_circuit", "sample_rand_circuits_for_heavy_out",
+    "sample_heavy_outputs_batched", "sample_heavy_outputs_sharded",
+    "calculate_prob_est_and_err",
+    "topology_restricted_program_generator",
+    "measure_quantum_volume", "measure_quantum_volume_batched",
+    "count_heavy_hitters_sampled", "get_prob_sample_heavy_by_depth",
+    "extract_quantum_volume_from_results",
+]
+
+
+def generate_abstract_qv_circuit(depth: int,
+                                 rng: Optional[np.random.RandomState] = None) \
+        -> Tuple[List[np.ndarray], np.ndarray]:
+    """Random permutations and Haar-random 4x4 gates of a model circuit,
+    drawn from ``rng`` (numpy's global state if None) in the JAX package's
+    order: the permutations, then each gate's real and imaginary Gaussians,
+    QR with the phase fix."""
+    if rng is None:
+        rng = np.random
+    permutations = [rng.permutation(range(depth)) for _ in range(depth)]
+    num_gates_per_layer = depth // 2
+
+    def haar4():
+        # standard_normal exists on np.random, RandomState and Generator
+        z = rng.standard_normal((4, 4)) + 1j * rng.standard_normal((4, 4))
+        q, r = np.linalg.qr(z)
+        lam = np.diagonal(r) / np.abs(np.diagonal(r))
+        return q * lam
+    gates = np.asarray([[haar4() for _ in range(num_gates_per_layer)]
+                        for _ in range(depth)])
+    return permutations, gates
+
+
+def collect_heavy_outputs(depth: int, permutations: Sequence[np.ndarray],
+                          gates: np.ndarray) -> List[int]:
+    """Ints of bitstrings output with greater-than-median ideal probability.
+
+    Simulates the model circuit in host numpy (qubit 0 left-most, as
+    NumpyWavefunctionSimulator) and takes the median with
+    ``statistics.median``, as the JAX package does.
+    """
+    psi = np.zeros((2,) * depth, dtype=complex)
+    psi[(0,) * depth] = 1.0
+    for perm, layer in zip(permutations, gates):
+        for gate_idx, gate in enumerate(layer):
+            axes = (int(perm[gate_idx]), int(perm[gate_idx + 1]))
+            g = np.asarray(gate, complex).reshape(2, 2, 2, 2)
+            psi = np.tensordot(g, psi, axes=([2, 3], list(axes)))
+            psi = np.moveaxis(psi, [0, 1], list(axes))
+    probabilities = np.abs(psi.reshape(-1)) ** 2
+    median_prob = median(probabilities)
+    return [idx for idx, prob in enumerate(probabilities) if prob > median_prob]
+
+
+def abstract_circuit_to_circuit(qubits: Sequence[int],
+                                permutations: Sequence[np.ndarray],
+                                gates: np.ndarray) -> Circuit:
+    """The analog of _naive_program_generator: custom-matrix gates on the first
+    depth-many of ``qubits`` (no ISA restriction — there is no remote compiler).
+    """
+    num_measure_qubits = len(permutations[0])
+    measure_qubits = list(qubits)[:num_measure_qubits]
+    circ = Circuit()
+    for perm, layer in zip(permutations, gates):
+        for gate_idx, gate in enumerate(layer):
+            circ += Gate("QVGATE", (), (int(measure_qubits[perm[gate_idx]]),
+                                        int(measure_qubits[perm[gate_idx + 1]])),
+                         matrix=tuple(map(tuple, np.asarray(gate, complex))))
+    return circ
+
+
+def topology_restricted_program_generator(
+        edges: Sequence[Tuple[int, int]]) -> Callable:
+    """A ``program_generator`` for :func:`measure_quantum_volume` that routes
+    model circuits onto a restricted qubit connectivity graph.
+
+    The analog of the reference's ``_naive_program_generator``
+    (quantum_volume.py:62-89), which recompiles onto the qc's ISA/topology via
+    the remote compiler: here a naive greedy router inserts SWAP chains
+    (shortest path by BFS) to bring each gate's qubits adjacent, applies the
+    Haar gate, and finally restores the identity logical->physical mapping so
+    the caller's fixed measurement qubits read out the model circuit's
+    logical bits. SWAPs are named gates, so noise models attached via
+    ``Circuit.define_noisy_gate("SWAP", ...)`` hit exactly the routing
+    overhead — enabling QV-vs-connectivity studies.
+
+    :param edges: undirected edges of the available topology (physical qubit
+        labels; every qubit passed to measure_quantum_volume must appear).
+    :return: a ``program_generator(qc, qubits, permutations, gates)``.
+    """
+    adj: Dict[int, List[int]] = {}
+    for a, b in edges:
+        adj.setdefault(int(a), []).append(int(b))
+        adj.setdefault(int(b), []).append(int(a))
+
+    def shortest_path(src: int, dst: int) -> List[int]:
+        prev = {src: None}
+        frontier = [src]
+        while frontier:
+            nxt = []
+            for u in frontier:
+                for v in adj.get(u, ()):
+                    if v not in prev:
+                        prev[v] = u
+                        nxt.append(v)
+            if dst in prev:
+                break
+            frontier = nxt
+        if dst not in prev:
+            raise ValueError(f"No path between qubits {src} and {dst} in the "
+                             "given topology")
+        path = [dst]
+        while path[-1] != src:
+            path.append(prev[path[-1]])
+        return path[::-1]
+
+    def generator(qc, qubits: Sequence[int], permutations: Sequence[np.ndarray],
+                  gates: np.ndarray) -> Circuit:
+        depth = len(permutations[0])
+        physical = list(qubits)[:depth]
+        for q in physical:
+            if int(q) not in adj:
+                raise ValueError(f"Qubit {q} is not in the topology")
+        # occupant[p] = logical qubit currently on physical qubit p (None for
+        # spare topology qubits, which routing may freely swap through);
+        # loc[l] = physical qubit currently holding logical qubit l.
+        occupant: Dict[int, Optional[int]] = {p: None for p in adj}
+        for l in range(depth):
+            occupant[int(physical[l])] = l
+        loc = {l: int(physical[l]) for l in range(depth)}
+        circ = Circuit()
+        routing_swaps: List[Tuple[int, int]] = []
+
+        def swap(a: int, b: int):
+            nonlocal circ
+            circ += Gate("SWAP", (), (a, b))
+            routing_swaps.append((a, b))
+            occupant[a], occupant[b] = occupant[b], occupant[a]
+            for p in (a, b):
+                if occupant[p] is not None:
+                    loc[occupant[p]] = p
+
+        for perm, layer in zip(permutations, gates):
+            for gate_idx, gate in enumerate(layer):
+                la, lb = int(perm[gate_idx]), int(perm[gate_idx + 1])
+                if loc[lb] not in adj.get(loc[la], ()):
+                    # walk logical qubit la along a shortest physical path
+                    # (possibly through spare qubits) until adjacent to lb
+                    for step in shortest_path(loc[la], loc[lb])[1:-1]:
+                        swap(loc[la], step)
+                pa, pb = loc[la], loc[lb]
+                circ += Gate("QVGATE", (), (pa, pb),
+                             matrix=tuple(map(tuple, np.asarray(gate, complex))))
+        # restore the identity mapping (so measurement qubits read out logical
+        # bits) by undoing every routing swap in reverse order — each swap is
+        # self-inverse and topology-respecting by construction
+        for a, b in reversed(routing_swaps):
+            circ += Gate("SWAP", (), (a, b))
+        return circ
+
+    return generator
+
+
+def sample_rand_circuits_for_heavy_out(qc, qubits: Sequence[int], depth: int,
+                                       program_generator: Callable = None,
+                                       num_circuits: int = 100,
+                                       num_shots: int = 1000,
+                                       show_progress_bar: bool = False,
+                                       rng: Optional[np.random.RandomState] = None) -> int:
+    """Count sampled heavy outputs across random model circuits at this depth.
+
+    Runs each circuit on ``qc`` (which may be noisy; ``QVM()`` runs on the
+    card) and compares each shot, on the host, against the ideal
+    heavy-output set.
+    """
+    if rng is None:
+        rng = np.random
+    num_heavy = 0
+    for _ in progress_iter(range(num_circuits), show_progress_bar,
+                           desc=f"qv depth {depth}"):
+        permutations, gates = generate_abstract_qv_circuit(depth, rng)
+        if program_generator is None:
+            program = abstract_circuit_to_circuit(qubits, permutations, gates)
+        else:
+            program = program_generator(qc, qubits, permutations, gates)
+        measure_qubits = list(qubits)[:depth]
+        results = qc.run(program, measure_qubits, num_shots)
+        heavy_outputs = set(collect_heavy_outputs(depth, permutations, gates))
+        for result in results:
+            if bit_array_to_int(result) in heavy_outputs:
+                num_heavy += 1
+    return num_heavy
 
 
 def _sample_perms(generator: torch.Generator, num_circuits: int,
@@ -278,6 +491,47 @@ def sample_heavy_outputs_batched(generator: Optional[torch.Generator],
     return torch.gather(heavy, 1, samples).sum(1)
 
 
+def sample_heavy_outputs_sharded(generator: torch.Generator, mesh,
+                                 depth: int, num_circuits: int,
+                                 num_shots: int, axis_name: str = "batch",
+                                 **kw) -> torch.Tensor:
+    """:func:`sample_heavy_outputs_batched` with circuits sharded over a mesh.
+
+    QV heavy-output sampling is embarrassingly parallel in the circuit axis:
+    shard i runs :func:`sample_heavy_outputs_batched` on
+    ``num_circuits / n_shards`` circuits on its device, drawing from
+    ``parallel.fold_in(generator, i, device)``, so the result equals the
+    per-shard runs with those generators concatenated (on the card: the
+    ideal kernel, and the trajectory kernel for
+    ``noisy_method="trajectory"``, once a shard).
+
+    :param generator: the parent ``torch.Generator`` (its ``initial_seed``
+        seeds the shards' streams).
+    :param mesh: a :class:`~.parallel.Mesh` whose ``axis_name`` axis shards
+        the circuit batch; its size must divide ``num_circuits``.
+    :param kw: forwarded to :func:`sample_heavy_outputs_batched`
+        (``dtype``, ``kraus``, ``noisy_method``, ``num_trajectories``).
+    :return: (num_circuits,) per-circuit heavy counts on the mesh's first
+        device.
+    """
+    from forest_benchmarking_tpu_torch.parallel import shard_map_batched
+
+    n_dev = mesh.shape[axis_name]
+    if num_circuits % n_dev != 0:
+        raise ValueError(f"num_circuits ({num_circuits}) must be divisible "
+                         f"by the mesh axis {axis_name!r} size {n_dev}")
+    per_dev = num_circuits // n_dev
+
+    def shard(gen):
+        return sample_heavy_outputs_batched(
+            gen, depth=depth, num_circuits=per_dev, num_shots=num_shots,
+            device=gen.device, **kw)
+
+    return shard_map_batched(shard, mesh, batched_argnums=(),
+                             fold_key_argnums=(0,),
+                             axis_name=axis_name)(generator)
+
+
 def measure_quantum_volume_batched(generator: Optional[torch.Generator] = None,
                                    max_depth: int = 8,
                                    num_circuits: int = 200,
@@ -322,6 +576,71 @@ def calculate_prob_est_and_err(num_heavy: int, num_circuits: int,
         2 * np.sqrt(num_heavy * (num_shots - num_heavy / num_circuits)) \
         / total_sampled_outputs
     return prob_sample_heavy, one_sided_confidence_interval
+
+
+def measure_quantum_volume(qc, qubits: Sequence[int] = None,
+                           program_generator: Callable = None,
+                           num_circuits: int = 100, num_shots: int = 1000,
+                           depths: Optional[np.ndarray] = None,
+                           achievable_threshold: float = 2 / 3,
+                           stop_when_fail: bool = True,
+                           show_progress_bar: bool = False,
+                           rng: Optional[np.random.RandomState] = None) \
+        -> Dict[int, Tuple[float, float]]:
+    """Measure quantum volume of the given (possibly noisy) qc [QVol]."""
+    if num_circuits < 100:
+        warnings.warn("The number of random circuits ran ought to be greater "
+                      "than 100 for results to be valid.")
+    if qubits is None:
+        raise ValueError("Specify the qubits available on the qc.")
+    if depths is None:
+        depths = np.arange(2, len(qubits) + 1)
+
+    results = {}
+    for depth in depths:
+        log.info("Starting depth %s", depth)
+        num_heavy = sample_rand_circuits_for_heavy_out(
+            qc, qubits, depth, program_generator, num_circuits, num_shots,
+            show_progress_bar, rng=rng)
+        prob_sample_heavy, one_sided = calculate_prob_est_and_err(
+            num_heavy, num_circuits, num_shots)
+        results[depth] = (prob_sample_heavy, one_sided)
+        if stop_when_fail and not one_sided > achievable_threshold:
+            break
+    return results
+
+
+def count_heavy_hitters_sampled(qc_results: Iterator[np.ndarray],
+                                heavy_hitters: Iterator[List[int]]) -> Iterator[int]:
+    """Per-circuit counts of sampled bitstrings that are heavy."""
+    for results, hh_list in zip(qc_results, heavy_hitters):
+        hh_set = set(hh_list)
+        num_heavy = 0
+        for result in results:
+            if bit_array_to_int(result) in hh_set:
+                num_heavy += 1
+        yield num_heavy
+
+
+def get_prob_sample_heavy_by_depth(depths: Iterator[int],
+                                   num_hh_sampled: Iterator[int],
+                                   num_shots: Iterator[int]) \
+        -> Dict[int, Tuple[float, float]]:
+    """Per-depth (probability estimate, lower bound) from per-circuit counts."""
+    nheavy_by_depth = {}
+    for depth, num_heavy, n_shots in zip(depths, num_hh_sampled, num_shots):
+        if depth not in nheavy_by_depth:
+            nheavy_by_depth[depth] = ([num_heavy], n_shots)
+        else:
+            nheavy_by_depth[depth][0].append(num_heavy)
+            assert n_shots == nheavy_by_depth[depth][1], \
+                "The number of shots should be the same for each circuit of a " \
+                "given depth."
+    results_by_depth = {}
+    for depth, (n_heavy, n_shots) in nheavy_by_depth.items():
+        results_by_depth[depth] = calculate_prob_est_and_err(
+            sum(n_heavy), len(n_heavy), n_shots)
+    return results_by_depth
 
 
 def extract_quantum_volume_from_results(

@@ -913,3 +913,48 @@ def test_do_dfe_on_the_card_equals_the_cpu(cuda):
         for p, q in zip(programs, meas):
             assert (card.probabilities(p, q).cpu()
                     - cpu.probabilities(p, q)).abs().max() <= 1e-12
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_apg_fused_sharded_equals_unsharded_on_the_card(cuda, shards):
+    """The kernel is elementwise in the batch, and the warm start's product
+    runs in fixed blocks: the sharded solve is bitwise the unsharded one,
+    one launch a shard (B = 8192 was summed otherwise than 16384 before)."""
+    from forest_benchmarking_tpu_torch.parallel import make_mesh
+    a = torch.tensor(process_tomo_A_matrix(2), dtype=torch.complex64,
+                     device=cuda)
+    a_pinv = torch.linalg.pinv(a)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    n, _ = synth_process_datasets(gen, a, 4, 8192, 2000)
+    cfg = lanes_apg.HEADLINE_TUNED_2Q
+    want = lanes_apg.apg_fused(a, n, 4, a_pinv=a_pinv, **cfg)
+    before = lanes_apg.apg_fused.launches
+    got = lanes_apg.apg_fused_sharded(a, n, make_mesh([cuda] * shards),
+                                      dim=4, a_pinv=a_pinv, **cfg)
+    torch.cuda.synchronize()
+    assert lanes_apg.apg_fused.launches == before + shards
+    assert got.device == cuda and torch.equal(got, want)
+
+
+def test_sample_heavy_outputs_sharded_on_the_card(cuda):
+    """Sharded QV on a mesh that repeats the card: bitwise the per-shard
+    runs with ``fold_in``, one launch of each kernel a shard."""
+    from forest_benchmarking_tpu_torch.parallel import fold_in, make_mesh
+    ks = depolarizing_kraus_map(0.02)
+    kraus = np.stack([np.kron(x, y) for x in ks for y in ks])
+    parent = torch.Generator(device=cuda).manual_seed(11)
+    for kw, traj_launches in (({}, 0), (dict(
+            kraus=kraus, noisy_method="trajectory", num_trajectories=100),
+            2)):
+        ideal0 = pallas_traj.ideal_probs.launches
+        traj0 = pallas_traj.traj_probs.launches
+        got = quantum_volume.sample_heavy_outputs_sharded(
+            parent, make_mesh([cuda, cuda]), depth=8, num_circuits=64,
+            num_shots=200, **kw)
+        torch.cuda.synchronize()
+        assert pallas_traj.ideal_probs.launches == ideal0 + 2
+        assert pallas_traj.traj_probs.launches == traj0 + traj_launches
+        want = torch.cat([quantum_volume.sample_heavy_outputs_batched(
+            fold_in(parent, i, cuda), 8, 32, 200, device=cuda, **kw)
+            for i in range(2)])
+        assert torch.equal(got, want)

@@ -68,7 +68,11 @@ def test_port_imports_without_jax_package_or_toolchain():
                  "circuits", "paulis", "compilation", "observable_estimation",
                  "sim", "sim.density", "sim.executor", "sim.qvm",
                  "clifford", "direct_fidelity_estimation",
-                 "robust_phase_estimation", "readout"):
+                 "robust_phase_estimation", "readout", "_graph",
+                 "entangled_states", "classical_logic",
+                 "classical_logic.primitives",
+                 "classical_logic.ripple_carry_adder", "parallel",
+                 "parallel.sharding"):
         assert f"forest_benchmarking_tpu_torch.{name}" in info["names"]
     assert info["jax"] == []
     assert info["jax_package"] == []
@@ -140,11 +144,13 @@ def test_sim_package_reexports_the_jax_names():
 
 PROTOCOL_MODULES = ("clifford", "randomized_benchmarking", "qubit_spectroscopy",
                     "direct_fidelity_estimation", "robust_phase_estimation",
-                    "readout")
+                    "readout", "entangled_states", "classical_logic.primitives",
+                    "classical_logic.ripple_carry_adder", "quantum_volume")
 
 
 def test_protocol_modules_carry_the_jax_packages_public_names():
-    """The six modules of the Clifford-engine slice have the JAX modules'
+    """The protocol modules (the six of the Clifford-engine slice, the
+    entangled states, the adder and quantum volume) have the JAX modules'
     whole ``__all__``, in order, and every name is defined."""
     import importlib
     for name in PROTOCOL_MODULES:
@@ -152,3 +158,22 @@ def test_protocol_modules_carry_the_jax_packages_public_names():
         theirs = importlib.import_module(f"forest_benchmarking_tpu.{name}")
         assert ours.__all__ == theirs.__all__, name
         assert all(hasattr(ours, attr) for attr in ours.__all__), name
+
+
+def test_packages_reexport_the_jax_names():
+    """``classical_logic`` star-imports its two modules, ``parallel`` the
+    JAX package's five sharding names (and the port's ``fold_in`` and
+    ``Mesh``), and the sharded entry points stand in their modules."""
+    import forest_benchmarking_tpu.classical_logic as jax_cl
+    import forest_benchmarking_tpu.parallel as jax_par
+    import forest_benchmarking_tpu.ops.lanes_dnorm as jax_dnorm
+    from forest_benchmarking_tpu_torch import classical_logic, parallel
+    from forest_benchmarking_tpu_torch.ops import lanes_dnorm
+    for ours, theirs in ((classical_logic, jax_cl), (parallel, jax_par)):
+        public = {n for n in dir(theirs) if not n.startswith("_")
+                  and n not in ("primitives", "ripple_carry_adder",
+                                "sharding")}
+        assert public and all(hasattr(ours, n) for n in public)
+    assert set(jax_dnorm.__all__) <= set(lanes_dnorm.__all__)
+    assert set(jax_lanes.__all__) - {"apg_fused_lanes"} <= set(
+        lanes_apg.__all__)
