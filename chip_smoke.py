@@ -6,7 +6,8 @@ projection, batched state tomography (config 1), batched RB decay fits
 (config 3), channel distances with batched diamond norms (config 4), the
 tomography protocol end to end on the port's QVM (``do_tomography``), the
 Clifford-engine protocols, and quantum volume from circuits (config 5),
-entangled states, the ripple-carry adder and the sharded entry points.
+entangled states, the ripple-carry adder and the sharded entry points, and
+the example scripts of ``examples_torch/``.
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
@@ -313,9 +314,25 @@ Phases, each of which must pass:
    ``batch_sharded`` around ``simulate_rb_survival_batched`` within 1e-12
    of the unsharded run.
 
+20. every script of ``examples_torch/`` (the counterparts of the JAX
+   package's ``examples/``), in this process, through its
+   ``main(device="cuda", out_dir="build/examples")``, with the launch
+   counters zeroed before each and read after it: the host seconds, the
+   counters, the script's own lines, and the figures it returns (what it
+   prints), each held to its bar in ``EXAMPLE_BARS`` (the bars of the
+   tests of ``examples_torch/``; the scripts compute in float64 /
+   complex128 on the card, so the round-off bars stay 1e-12). The ideal QV
+   kernel's counter must move in ``quantum_volume``; the route of its noisy
+   batched scan (the density method or the trajectory kernel, as
+   ``quantum_volume`` picks it) is printed. Without matplotlib, the
+   plotting example runs as far as its first figure call, which must raise
+   ImportError; with it, the figures drawn from the card's tensors must be
+   bitwise those drawn from the same tensors on the CPU. Budget: 90 s.
+
 Before it, one JSON line ``{"tomography": ...}`` holds phase 17's figures,
-one ``{"protocols": ...}`` phase 18's and one ``{"slice13": ...}`` phase
-19's.
+one ``{"protocols": ...}`` phase 18's, one ``{"slice13": ...}`` phase
+19's and one ``{"examples": {name: {"s": ..., "launches": {...}}}}`` phase
+20's.
 The second-to-last line is the per-kernel JSON record: ``launches`` from
 the main paths; ``ms``/``plain_ms``: the kernel alone and the plain version
 at the main path's size (APG: headline schedule); ``bound_ms``: the larger
@@ -338,9 +355,11 @@ printing no result, if CUDA is unavailable or any phase fails.
 """
 import contextlib
 import functools
+import io
 import itertools
 import json
 import math
+import pathlib
 import re
 import statistics
 import subprocess
@@ -2385,6 +2404,267 @@ def phase_slice13(card: str, dev: torch.device) -> dict:
     return record
 
 
+# ----------------------------------------------------------------------
+# 20. the example scripts of examples_torch/ on the card
+# ----------------------------------------------------------------------
+
+EXAMPLES = ("state_and_process_tomography", "quantum_volume",
+            "distance_measures", "superoperator_tools",
+            "observable_estimation", "randomized_benchmarking",
+            "qubit_spectroscopy", "direct_fidelity_estimation",
+            "robust_phase_estimation", "readout_characterization",
+            "entangled_states", "ripple_carry_adder", "chip_scan", "plotting")
+ROUND_OFF = 1e-12      # the scripts compute in float64 / complex128 on the card
+# (low, high) of every figure phase 20 holds, by script: the bars of
+# tests/test_torch_examples.py and tests/test_torch_examples_protocols.py,
+# which hold these tables equal to their own
+EXAMPLE_BARS = {
+    "state_and_process_tomography": {
+        "state_fidelity": (0.95, 1.05), "process_fidelity": (0.85, 1.05)},
+    "quantum_volume": {
+        "ideal_qv": (16, 16), **{f"ideal_prob_d{d}": (0.75, 0.95)
+                                 for d in (2, 3, 4)},
+        "per_circuit_prob_d2": (0.7, 0.95), "per_circuit_prob_d3": (0.7, 0.95),
+        "line_prob_d3": (0.7, 0.95), "noisy_prob_d2": (0.6, 0.8),
+        "noisy_qv": (2, 4)},
+    "distance_measures": {
+        "fidelity_error": (0, ROUND_OFF), "trace_distance_error": (0, ROUND_OFF),
+        "purity_error": (0, ROUND_OFF), "bures_angle_error": (0, ROUND_OFF),
+        "process_fidelity_error": (0, ROUND_OFF),
+        "entanglement_fidelity_error": (0, ROUND_OFF),
+        "diamond_norm_error": (0, 1e-4), "watrous_error": (0, ROUND_OFF)},
+    "superoperator_tools": {
+        "cptp": (1, 1), "unital": (0, 0), "chi00_error": (0, ROUND_OFF),
+        "ptm_error": (0, ROUND_OFF), "apply_agreement": (0, ROUND_OFF),
+        "corrupted_cptp": (0, 0), "repaired_cptp": (1, 1),
+        "unitarity": (0, ROUND_OFF), "ginibre_purity": (0.5, 1),
+        "bures_purity": (0.5, 1), "bcsz_cptp": (1, 1)},
+    "observable_estimation": {
+        "runs_ungrouped": (4, 4), "runs_grouped": (3, 3),
+        "ideal_correlator_error": (0, 0.05), "ideal_z0": (-0.05, 0.05),
+        "calibrated_correlator_error": (0, 0.08)},
+    "randomized_benchmarking": {
+        "decay_sigmas": (0, 3.0), "irb_lower": (0, 1), "irb_upper": (1, 2),
+        "unitarity_error": (0, 0.02)},
+    "qubit_spectroscopy": {
+        "t1_error_us": (0, 1.0), "t2_echo_us": (5.5, 33.0),
+        "rabi_error": (0, 0.02), "cz_phase_error": (0, 0.05)},
+    "direct_fidelity_estimation": {
+        "ghz_error": (0, 0.01), "depolarized_error": (0, 0.02),
+        "cnot_error": (0, 0.05)},
+    "robust_phase_estimation": {"rz_error": (0, 0.05), "rx_error": (0, 0.05)},
+    "readout_characterization": {
+        "confusion_sigmas": (0, 5), "joint_sigmas": (0, 5),
+        "marginal_sigmas": (0, 5)},
+    "entangled_states": {"ghz_bell_share": (0.99, 1), "zzz_sigmas": (0, 5)},
+    "ripple_carry_adder": {
+        "success_Z": (1, 1), "success_X": (1, 1), "hamming_weight_0": (1, 1),
+        "noisy_success_sigmas": (0, 5)},
+    "chip_scan": {
+        "worst_p00": (1, 1), "min_state_fidelity": (0.95, 1.05),
+        "t1_error_us": (0, 4.0), "max_rb_error": (0, 1e-3),
+        "cz_fidelity_error": (0, 0.01)},
+    "plotting": {"ptm_diagonal_error": (0, ROUND_OFF),
+                 "smallest_png_bytes": (1, math.inf)},
+}
+READOUT_P00_P11 = (0.97, 0.90)   # readout_characterization's noise
+ADDER_P00_P11 = (0.95, 0.92)     # ripple_carry_adder's noisy readout
+EXAMPLE_BUDGET_S = 90
+
+
+def binomial_sigmas(est, truth, shots) -> float:
+    """The largest |est - truth| over the entries, in binomial sigma of
+    ``shots`` shots a row."""
+    truth = np.asarray(truth, dtype=float)
+    return float(np.max(np.abs(np.asarray(est) - truth)
+                        / np.sqrt(truth * (1 - truth) / shots)))
+
+
+def example_figures(name: str, out: dict) -> dict:
+    """The figures of ``examples_torch/<name>.py`` that phase 20 holds to
+    ``EXAMPLE_BARS[name]``, from what its ``main`` returns (the figures it
+    prints), as distances from the analytic or injected values where the
+    bar is one."""
+    f = {k: float(v) for k, v in out.items() if np.ndim(v) == 0}
+    err = lambda value, want: float(np.max(np.abs(np.asarray(value) - want)))
+    if name == "distance_measures":
+        want = dict(fidelity=0.5, trace_distance=0.5, purity=0.5,
+                    bures_angle=np.pi / 4, process_fidelity=0.9,
+                    entanglement_fidelity=0.85, diamond_norm=0.3)
+        f = {f"{k}_error": err(out[k], v) for k, v in want.items()}
+        # the nuclear norm of the Choi difference, 3p, and d^2 times it
+        f["watrous_error"] = err([out["watrous_lower"], out["watrous_upper"]],
+                                 [0.6, 2.4])
+    elif name == "superoperator_tools":
+        p = 0.1      # amplitude damping
+        f["chi00_error"] = err(out["chi00"], (1 + np.sqrt(1 - p)) ** 2 / 4)
+        f["ptm_error"] = err(out["ptm"], [
+            [1, 0, 0, 0], [0, np.sqrt(1 - p), 0, 0],
+            [0, 0, np.sqrt(1 - p), 0], [p, 0, 0, 1 - p]])
+    elif name == "observable_estimation":
+        f["ideal_correlator_error"] = err(out["ideal"][:3], [1, -1, 1])
+        f["ideal_z0"] = float(out["ideal"][3])
+        f["calibrated_correlator_error"] = err(out["calibrated"][:3],
+                                               [1, -1, 1])
+    elif name == "randomized_benchmarking":
+        f["decay_sigmas"] = abs(out["decay"] - 0.9) / out["decay_stderr"]
+        f["unitarity_error"] = abs(out["unitarity"] - 1)
+    elif name == "qubit_spectroscopy":
+        phase = out["cz_phase"] % (2 * np.pi)
+        f = {"t1_error_us": abs(out["t1_us"] - 18.0),
+             "t2_echo_us": out["t2_echo_us"],
+             "rabi_error": abs(out["rabi_ratio"] - 1),
+             "cz_phase_error": min(phase, 2 * np.pi - phase)}
+    elif name == "direct_fidelity_estimation":
+        f = {"ghz_error": abs(out["ghz"] - 1),
+             "depolarized_error": abs(out["depolarized"] - (1 - 0.15 / 2)),
+             "cnot_error": abs(out["cnot"] - 1)}
+    elif name == "robust_phase_estimation":
+        f = {"rz_error": abs(out["rz"] - 1.234),
+             "rx_error": abs(out["rx"] - 0.777)}
+    elif name == "readout_characterization":
+        p00, p11 = READOUT_P00_P11
+        one = np.array([[p00, 1 - p00], [1 - p11, p11]])
+        f = {"confusion_sigmas": binomial_sigmas(out["confusion"], one, 20000),
+             "joint_sigmas": binomial_sigmas(out["joint"], np.kron(one, one),
+                                             5000),
+             "marginal_sigmas": binomial_sigmas(out["marginal"], one, 10000)}
+    elif name == "entangled_states":
+        # the parity of 2000 shots has variance (1 - <ZZZ>^2) / 2000
+        want = np.asarray(out["zzz_expected"])
+        f["zzz_sigmas"] = float(np.max(
+            np.abs(out["zzz"] - want)
+            / np.sqrt(np.maximum(1 - want ** 2, 1e-12) / 2000)))
+    elif name == "ripple_carry_adder":
+        f["hamming_weight_0"] = float(out["hamming"][0])
+        # every summand pair of 2 bits, its 3-bit sum read bit by bit
+        p00, p11 = ADDER_P00_P11
+        want = np.mean([np.prod([p11 if (a + b) >> k & 1 else p00
+                                 for k in range(3)])
+                        for a in range(4) for b in range(4)])
+        f["noisy_success_sigmas"] = binomial_sigmas(out["success_noisy"],
+                                                    want, 16 * 100)
+    elif name == "chip_scan":
+        f["t1_error_us"] = err(out["t1_us"], 20.0)
+        f["cz_fidelity_error"] = err(out["cz_fidelity"], 1.0)
+    elif name == "plotting":
+        f = {"ptm_diagonal_error": err(out["ptm_diagonal"], [1, .7, .7, .7]),
+             "smallest_png_bytes": float(np.min(out["png_bytes"]))}
+    return {k: f[k] for k in EXAMPLE_BARS[name]}
+
+
+def example_failures(name: str, figures: dict) -> list:
+    """The figures of ``name`` outside their bars, as text."""
+    return [f"{name}: {k} = {v!r} outside [{lo}, {hi}]"
+            for k, v in figures.items()
+            for lo, hi in [EXAMPLE_BARS[name][k]] if not lo <= v <= hi]
+
+
+def load_example(name: str):
+    """The module of ``examples_torch/<name>.py`` (``main`` not run)."""
+    import importlib.util
+    path = pathlib.Path(__file__).resolve().parent / "examples_torch" / \
+        f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def agg_rgba(fig) -> np.ndarray:
+    """The RGBA buffer of a figure drawn by Agg."""
+    fig.canvas.draw()
+    return np.asarray(fig.canvas.buffer_rgba()).copy()
+
+
+def plotting_on_the_card(module, dev: torch.device, out_dir: str, buf):
+    """Run the plotting example, its lines into ``buf``. Without
+    matplotlib: as far as its first figure call, which must raise
+    ImportError (and so must the port's ``hinton``); returns the figures
+    held then. With it: the whole script, and the three figures drawn from
+    the card's tensors must be bitwise those drawn from the same tensors on
+    the CPU."""
+    from forest_benchmarking_tpu_torch.plotting import hinton
+    bell, plus_pl, ptm = module.figures(dev)
+    ptm_error = float((torch.diagonal(ptm).cpu()
+                       - torch.tensor([1, .7, .7, .7], dtype=ptm.dtype))
+                      .abs().max())
+    try:
+        import matplotlib
+    except ImportError:
+        for call, says in ((lambda: module.main(device=dev, out_dir=out_dir),
+                            "matplotlib"),
+                           (lambda: hinton(bell), "plotting needs matplotlib")):
+            try:
+                with contextlib.redirect_stdout(buf):
+                    call()
+            except ImportError as err:
+                check(says in str(err), str(err))
+            else:
+                raise SmokeFailure("plotting drew without matplotlib")
+        print("plotting example: not drawn, no matplotlib on this machine")
+        return None, {"ptm_diagonal_error": ptm_error}
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    with contextlib.redirect_stdout(buf):
+        out = module.main(device=dev, out_dir=out_dir)
+    card = module.draw(bell, plus_pl, ptm)
+    host = module.draw(bell.cpu(), plus_pl.cpu(), ptm.cpu())
+    for name in card:
+        same = np.array_equal(agg_rgba(card[name]), agg_rgba(host[name]))
+        print(f"plotting example: {name} from the card's tensors "
+              f"{'bitwise equal to' if same else 'DIFFERS from'} the CPU's")
+        check(same, f"plotting: {name} differs between card and CPU tensors")
+    plt.close("all")
+    return out, None
+
+
+def phase_examples(card: str, dev: torch.device) -> dict:
+    """20. Every script of examples_torch/ on the card; see the module
+    docstring."""
+    t_phase = time.perf_counter()
+    out_dir = pathlib.Path("build") / "examples"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    counters = port_launches()
+    record, failures = {}, []
+    for name in EXAMPLES:
+        module = load_example(name)
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        before = {c.__name__: c.launches for c in counters}
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        if name == "plotting":
+            out, figures = plotting_on_the_card(module, dev, str(out_dir), buf)
+        else:
+            with contextlib.redirect_stdout(buf):
+                out = module.main(device=dev, out_dir=str(out_dir))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = {c.__name__: c.launches for c in counters}
+        if out is not None:
+            figures = example_figures(name, out)
+        failures += example_failures(name, figures)
+        record[name] = {"s": seconds, "launches": after}
+        print(f"example {name}: {seconds:.3f} s (host) on {card}; kernel "
+              f"launches before {before}, after {after}")
+        for line in buf.getvalue().splitlines():
+            print(f"  | {line}")
+        print(f"  figures: {json.dumps(figures, default=float)}")
+    moved = record["quantum_volume"]["launches"]
+    print(f"quantum_volume example: {moved['ideal_probs']} ideal-kernel "
+          f"launches; its noisy batched scan took the "
+          f"{'trajectory kernel' if moved['traj_probs'] else 'density method'}")
+    check(moved["ideal_probs"] > 0,
+          "quantum_volume example: the ideal QV kernel was not launched")
+    check(not failures, "; ".join(failures))
+    record["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 20: {record['phase_s']:.1f} s (budget "
+          f"{EXAMPLE_BUDGET_S} s)")
+    return record
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3068,6 +3348,10 @@ def main() -> int:
     # entry points (the APG, ideal and trajectory kernels in part (f))
     slice13_record = phase_slice13(card, dev)
 
+    # 20. every script of examples_torch/ (the ideal QV kernel in the
+    # quantum-volume example)
+    examples_record = phase_examples(card, dev)
+
     def record(name, source, replaces, launch_count, err, ms_k, ms_p, bound,
                library_ms=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -3082,6 +3366,8 @@ def main() -> int:
     print(json.dumps({"tomography": tomo_record}))
     print(json.dumps({"protocols": proto_record}))
     print(json.dumps({"slice13": slice13_record}, default=float))
+    print(json.dumps({"examples": {k: v for k, v in examples_record.items()
+                                   if k != "phase_s"}}))
     print(json.dumps({"kernels": [
         record("apg_fused", apg_src,
                "forest_benchmarking_tpu/ops/lanes_apg.py:674", launches,

@@ -91,6 +91,13 @@ default; a list such as ``[cpu] * 8`` otherwise), runs each shard on its
 device, and concatenates the results on the first one, bitwise those of the
 unsharded call where the solve is elementwise in the batch.
 
+Slice 14 covers the presentation layer: ``plotting`` (Hinton diagrams and
+the Pauli-basis plots) and ``analysis.fitting.plot_figure_for_fit``, which
+import matplotlib only when they draw (a drawing call without it raises
+ImportError), and ``ops.lanes_apg.apg_fused_lanes``, the JAX package's
+lanes-layout entry point. The scripts of ``examples_torch/`` run the
+JAX package's examples on the port.
+
 The package imports neither JAX nor the JAX package: it keeps its own
 copies of the host helpers it needs. The quantum-volume entry points run on
 the card unless the caller passes ``device="cpu"``; the process-tomography

@@ -1,11 +1,12 @@
 """Curve-fit models and a batched Levenberg-Marquardt fitter.
 
-Port of ``forest_benchmarking_tpu/analysis/fitting.py`` (all but the
-plotting, which waits for ROADMAP.md queue 1, item 16): the four models in
+Port of ``forest_benchmarking_tpu/analysis/fitting.py``: the four models in
 their named (numpy) and parameter-vector forms, :func:`fit_model_batched`,
-:func:`fit_model`, the ``fit_*`` wrappers, :class:`FitResult` and
-:func:`fit_result_to_json`. Standard errors follow lmfit's convention: the
-covariance (J^T W^2 J)^+ scaled by the reduced chi-square.
+:func:`fit_model`, the ``fit_*`` wrappers, :class:`FitResult`,
+:func:`fit_result_to_json`, and the plotting half, :func:`plot_figure_for_fit`
+with its colour and style constants (matplotlib is imported only when it
+draws). Standard errors follow lmfit's convention: the covariance
+(J^T W^2 J)^+ scaled by the reduced chi-square.
 
 The fitter runs a fixed number of Levenberg-Marquardt steps on the whole
 batch at once, batch-first: the Jacobians come from ``torch.func.jacfwd``
@@ -33,7 +34,8 @@ __all__ = [
     "decaying_cosine", "fit_decaying_cosine",
     "shifted_cosine", "fit_shifted_cosine",
     "FitResult", "Param", "fit_model", "fit_model_batched",
-    "fit_result_to_json", "errs_to_weights", "lm_flops_per_fit",
+    "fit_result_to_json", "plot_figure_for_fit", "errs_to_weights",
+    "FIT_PLOT_KWS", "lm_flops_per_fit",
 ]
 
 
@@ -371,3 +373,72 @@ def fit_result_to_json(fit_result: FitResult) -> dict:
         "params": {k: {"value": p.value, "stderr": p.stderr}
                    for k, p in fit_result.params.items()},
     }
+
+
+# ------------------------------- plotting -----------------------------------
+
+TEAL = "#6CAFB7"
+DARK_TEAL = "#48737F"
+FUSCHIA = "#D6619E"
+BEIGE = "#EAE8C6"
+GRAY = "#494949"
+
+# plot keyword defaults of the reference's lmfit plots, for callers styling
+# their own fit plots; plot_figure_for_fit applies the same styling inline
+FIT_PLOT_KWS = {
+    "data_kws": {"color": "black", "markersize": 4.0},
+    "init_kws": {"color": TEAL, "alpha": 0.4, "linestyle": "--"},
+    "fit_kws": {"alpha": 1.0, "linewidth": 2.0},
+    "numpoints": 1000,
+}
+
+DEFAULT_FIG_SIZE = (7, 10)
+DEFAULT_AXIS_FONT_SIZE = 14
+DEFAULT_REPORT_FONT_SIZE = 11
+
+
+def plot_figure_for_fit(fit_result: FitResult, xlabel: str = "x",
+                        ylabel: str = "y", xscale: float = 1.0,
+                        yscale: float = 1.0, title: str = "",
+                        figsize=DEFAULT_FIG_SIZE,
+                        axis_fontsize=DEFAULT_AXIS_FONT_SIZE,
+                        report_fontsize=DEFAULT_REPORT_FONT_SIZE):
+    """Fit and residuals on a new figure, with a parameter report; the JAX
+    package's figure, artist for artist. Returns (figure, axes)."""
+    from forest_benchmarking_tpu_torch.plotting._mpl import require
+    plt = require()
+    ticker = require("matplotlib.ticker")
+
+    fig, axs = plt.subplots(nrows=2, ncols=1, sharex=True,
+                            gridspec_kw={"height_ratios": (3, 1)},
+                            figsize=figsize)
+    plt.subplots_adjust(hspace=0, top=0.9, bottom=0.3)
+
+    x, y = fit_result.x, fit_result.y
+    xs = np.linspace(np.min(x), np.max(x), 1000)
+    axs[0].plot(x, y, "o", color="black", markersize=4.0, label="data")
+    axs[0].plot(xs, fit_result.eval(xs), color=FUSCHIA, linewidth=2.0,
+                label="best fit")
+    axs[0].legend()
+    axs[1].axhline(0, color=GRAY, linewidth=1)
+    axs[1].plot(x, fit_result.residual, "o", color="black", markersize=4.0)
+
+    axs[1].set_ylabel("residuals", fontsize=axis_fontsize)
+    axs[1].set_xlabel(xlabel, fontsize=axis_fontsize)
+    axs[0].set_ylabel(ylabel, fontsize=axis_fontsize)
+    axs[0].set_title(title, fontsize=axis_fontsize)
+
+    xticks = ticker.FuncFormatter(lambda v, pos: "{0:g}".format(v / xscale))
+    axs[1].xaxis.set_major_formatter(xticks)
+    yticks = ticker.FuncFormatter(lambda v, pos: "{0:g}".format(v / yscale))
+    for ax in axs:
+        ax.yaxis.set_major_formatter(yticks)
+
+    report_lines = [f"{k:12s} {p.value:+.5g} +/- "
+                    f"{p.stderr if p.stderr is not None else float('nan'):.3g}"
+                    for k, p in fit_result.params.items()]
+    report = "\n".join([f"chi-square     {fit_result.chisqr:.5g}",
+                        f"reduced chi-sq {fit_result.redchi:.5g}"] + report_lines)
+    fig.suptitle(report, fontsize=report_fontsize, family="monospace",
+                 horizontalalignment="left", x=0.1, y=0.25)
+    return fig, axs

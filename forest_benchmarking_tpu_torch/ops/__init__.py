@@ -1,5 +1,5 @@
 """Batched operator tools on torch tensors: every module of the JAX
-package's ``ops/`` (its ``*_sharded`` entry points wait; see ROADMAP.md).
+package's ``ops/``, with its ``*_sharded`` entry points.
 
 The package re-exports the same ten modules as the JAX package's
 ``ops/__init__.py``; importing it builds no kernel and imports no kernel

@@ -17,7 +17,8 @@ operations in the same order (the 16x16 and A-matrix products go through
 ``torch.matmul``, so only summation order differs). :func:`apg_fused` is the
 wrapper: it builds the warm start, then runs the plain version for CPU
 tensors and the hand-written CUDA kernel ``csrc/apg_fused.cu`` for CUDA
-tensors (dim=2 or dim=4, float32).
+tensors (dim=2 or dim=4, float32). :func:`apg_fused_lanes` takes the JAX
+package's lanes layout (batch last) and runs the same two.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from forest_benchmarking_tpu_torch import kernels
 
 __all__ = [
     "raster_a_matrix", "linear_inversion_start", "apg_fused_reference",
-    "apg_fused_kernel", "apg_fused", "apg_fused_sharded",
+    "apg_fused_kernel", "apg_fused_lanes", "apg_fused", "apg_fused_sharded",
     "apg_fused_flops_per_solve",
     "apg_fused_l2_bytes_per_solve", "full_f32_matmul",
     "PARITY_PHASES", "PARITY_TUNED_2Q", "HEADLINE_TUNED_2Q",
@@ -442,6 +443,46 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
                            f"{err} ({kernels.error_string(err)})")
     apg_fused.launches += 1
     return out_r, out_i
+
+
+def apg_fused_lanes(ar, ai, n_mat, rho0_r, rho0_i, *, dim: int,
+                    phases: Sequence[Tuple[int, int, int]] = PARITY_PHASES,
+                    init_iters: int = 8, init_sweeps: int = 3,
+                    final_iters: int = 20, final_sweeps: int = 1,
+                    final_sweeps_rest: Optional[int] = None,
+                    mu: Optional[float] = None):
+    """The fused solve on the JAX package's lanes layout (batch last).
+
+    :param ar, ai: (R, d4) real/imag planes of the raster-ordered A-matrix.
+    :param n_mat: (R, *batch) normalized counts, one column per problem;
+        ``batch`` may have any rank.
+    :param rho0_r, rho0_i: (d2, d2, *batch) starting matrices.
+    :return: (est_r, est_i) planes of shape (d2, d2, *batch).
+
+    The batch is moved to the front and solved as :func:`apg_fused` solves
+    it: by ``apg_fused_kernel`` for CUDA tensors (dim=2 or 4, float32), by
+    :func:`apg_fused_reference` for CPU tensors.
+    """
+    d2 = dim * dim
+    batch = tuple(n_mat.shape[1:])
+
+    def front(x):
+        return x.reshape(d2, d2, -1).permute(2, 0, 1).contiguous()
+
+    n = n_mat.reshape(n_mat.shape[0], -1).T.contiguous()
+    if ar.is_cuda:
+        solve = apg_fused_kernel
+    elif ar.device.type == "cpu":
+        solve = apg_fused_reference
+    else:
+        raise ValueError(f"unsupported device {ar.device}")
+    est_r, est_i = solve(
+        ar.contiguous(), ai.contiguous(), n, front(rho0_r), front(rho0_i),
+        dim=dim, phases=phases, init_iters=init_iters,
+        init_sweeps=init_sweeps, final_iters=final_iters,
+        final_sweeps=final_sweeps, final_sweeps_rest=final_sweeps_rest, mu=mu)
+    return tuple(x.permute(1, 2, 0).reshape(d2, d2, *batch)
+                 for x in (est_r, est_i))
 
 
 def apg_fused_flops_per_solve(rows: int, dim: int = 4,

@@ -383,6 +383,17 @@ def _use_kernels(depth: int, device: torch.device) -> bool:
     return device.type == "cuda" and pallas_traj.supports_pallas_traj(depth)
 
 
+def _noisy_method(depth: int, noisy_method: str = "auto") -> str:
+    """The method of a noisy batched call at ``depth``: ``noisy_method``,
+    where ``"auto"`` takes the exact density method to depth 6 and the
+    trajectories above."""
+    if noisy_method not in ("auto", "density", "trajectory"):
+        raise ValueError(f"unknown noisy_method {noisy_method!r}")
+    if noisy_method == "auto":
+        return "density" if depth <= 6 else "trajectory"
+    return noisy_method
+
+
 def _heavy_outputs(probs: torch.Tensor) -> torch.Tensor:
     """(C, 2^d) bool: outputs with greater-than-median ideal probability.
     The median of an even count is the mean of the two middle values, as
@@ -455,12 +466,7 @@ def sample_heavy_outputs_batched(generator: Optional[torch.Generator],
 
     if kraus is not None:
         kraus = torch.as_tensor(kraus).to(device=dev, dtype=cdtype)
-        if noisy_method not in ("auto", "density", "trajectory"):
-            raise ValueError(f"unknown noisy_method {noisy_method!r}")
-        method = noisy_method
-        if method == "auto":
-            method = "density" if depth <= 6 else "trajectory"
-        if method == "trajectory":
+        if _noisy_method(depth, noisy_method) == "trajectory":
             t = num_shots if num_trajectories is None else num_trajectories
             if num_shots % t != 0:
                 raise ValueError(f"num_trajectories ({t}) must divide "

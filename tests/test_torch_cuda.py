@@ -170,6 +170,27 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, cuda):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("batch", [(64,), (8, 8)])
+def test_lanes_entry_point_is_the_kernel_on_transposed_inputs(case, batch):
+    """``apg_fused_lanes`` (batch last, batch rank 1 and 2) launches the
+    kernel once and returns bitwise ``apg_fused_kernel``'s result on the
+    batch-first inputs, transposed."""
+    in32, _, n = case
+    cfg = lanes_apg.HEADLINE_TUNED_2Q
+    rho0 = lanes_apg.linear_inversion_start(in32.a_pinv, n, 4)
+    want = lanes_apg.apg_fused_kernel(in32.ar, in32.ai, n, *rho0, dim=4,
+                                      **cfg)
+    lanes = lambda x: x.permute(1, 2, 0).reshape(16, 16, *batch)
+    before = lanes_apg.apg_fused.launches
+    got = lanes_apg.apg_fused_lanes(
+        in32.ar, in32.ai, n.T.reshape(-1, *batch),
+        *(lanes(x) for x in rho0), dim=4, **cfg)
+    torch.cuda.synchronize()
+    assert lanes_apg.apg_fused.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, lanes(w))
+
+
 @pytest.mark.parametrize("batch", [64, 100])
 def test_1q_kernel_against_plain_version(cuda, batch):
     """dim=2 (sixteen problems per block; B = 100 leaves the last block a

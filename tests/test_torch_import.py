@@ -72,7 +72,8 @@ def test_port_imports_without_jax_package_or_toolchain():
                  "entangled_states", "classical_logic",
                  "classical_logic.primitives",
                  "classical_logic.ripple_carry_adder", "parallel",
-                 "parallel.sharding"):
+                 "parallel.sharding", "plotting", "plotting.hinton",
+                 "plotting.state_process"):
         assert f"forest_benchmarking_tpu_torch.{name}" in info["names"]
     assert info["jax"] == []
     assert info["jax_package"] == []
@@ -175,5 +176,20 @@ def test_packages_reexport_the_jax_names():
                                 "sharding")}
         assert public and all(hasattr(ours, n) for n in public)
     assert set(jax_dnorm.__all__) <= set(lanes_dnorm.__all__)
-    assert set(jax_lanes.__all__) - {"apg_fused_lanes"} <= set(
-        lanes_apg.__all__)
+    assert set(jax_lanes.__all__) <= set(lanes_apg.__all__)
+
+
+def test_fitting_and_plotting_carry_the_jax_packages_public_names():
+    """``analysis.fitting.__all__`` holds the JAX module's, and
+    ``plotting.__all__`` every public name of the JAX package's
+    ``plotting`` (its submodules aside); every name is defined."""
+    import forest_benchmarking_tpu.analysis.fitting as jax_fitting
+    import forest_benchmarking_tpu.plotting as jax_plotting
+    from forest_benchmarking_tpu_torch import plotting
+    from forest_benchmarking_tpu_torch.analysis import fitting
+    assert set(jax_fitting.__all__) <= set(fitting.__all__)
+    public = {n for n in dir(jax_plotting) if not n.startswith("_")
+              and n not in ("hinton", "state_process")} | {"hinton"}
+    assert public <= set(plotting.__all__)
+    for mod in (fitting, plotting):
+        assert all(hasattr(mod, name) for name in mod.__all__)

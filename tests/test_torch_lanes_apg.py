@@ -439,3 +439,29 @@ def test_jax_ordered_calls_give_the_keyword_result(dim):
                                    sublanes=16)
     assert torch.equal(positional, want)
     assert torch.equal(keywords, want)
+
+
+@pytest.mark.parametrize("batch", [(8,), (2, 4)])
+def test_apg_fused_lanes_matches_jax(batch):
+    """The lanes-layout entry point (batch last, any batch rank) against
+    JAX ``apg_fused_lanes`` in f64 on the same inputs, with ``PARITY_PHASES``
+    shortened, within the file's f64 bar (1e-9)."""
+    a = process_tomo_A_matrix(1)
+    rng = np.random.default_rng(31)
+    counts = rng.random((8, a.shape[0]))
+    inp = inputs_from_numpy(a, counts / counts.sum(1, keepdims=True),
+                            device="cpu", dtype=torch.float64)
+    rho0 = lanes_apg.linear_inversion_start(inp.a_pinv, inp.n, 2)
+    lanes = lambda x: np.moveaxis(x.numpy(), 0, -1).reshape(4, 4, *batch)
+    n_mat = inp.n.numpy().T.reshape(-1, *batch)
+    cfg = dict(dim=2, phases=((3, 1, 1), (2, 2, 1)), init_iters=2,
+               final_iters=3)
+    want = jax_lanes.apg_fused_lanes(
+        jnp.asarray(inp.ar.numpy()), jnp.asarray(inp.ai.numpy()),
+        jnp.asarray(n_mat), *(jnp.asarray(lanes(x)) for x in rho0), **cfg)
+    got = lanes_apg.apg_fused_lanes(
+        inp.ar, inp.ai, torch.tensor(n_mat),
+        *(torch.tensor(lanes(x)) for x in rho0), **cfg)
+    for g, w in zip(got, want):
+        assert g.shape == (4, 4, *batch)
+        assert np.max(np.abs(g.numpy() - np.asarray(w))) <= 1e-9
