@@ -6,8 +6,9 @@ projection, batched state tomography (config 1), batched RB decay fits
 (config 3), channel distances with batched diamond norms (config 4), the
 tomography protocol end to end on the port's QVM (``do_tomography``), the
 Clifford-engine protocols, and quantum volume from circuits (config 5),
-entangled states, the ripple-carry adder and the sharded entry points, and
-the example scripts of ``examples_torch/``.
+entangled states, the ripple-carry adder and the sharded entry points, the
+example scripts and notebooks of ``examples_torch/``, and the entry step
+with its dry run over a four-shard mesh.
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
@@ -329,10 +330,30 @@ Phases, each of which must pass:
    ImportError; with it, the figures drawn from the card's tensors must be
    bitwise those drawn from the same tensors on the CPU. Budget: 90 s.
 
+21. every notebook of ``examples_torch/notebooks/`` (the counterparts of
+   the JAX package's 23 notebooks), in this process, through the
+   plain-Python cell runner ``examples_torch/notebooks/_runner.py`` with
+   ``DEVICE`` the card, the launch counters zeroed before each notebook
+   and read after each cell: the host seconds, the counters (by cell),
+   the notebook's own lines, and the quantities it prints, each held to
+   its bar in ``NOTEBOOK_BARS`` (the bars of the notebook tests). Every
+   figure cell must raise ImportError where matplotlib is absent (the
+   runner checks it; with matplotlib it draws with Agg). The ideal QV
+   kernel must launch in ``quantum_volume`` and the trajectory kernel in
+   the trajectory cell of ``quantum_volume_noisy``. Budget: 120 s.
+22. ``entry.entry()``'s step once at B = 64 (finite process fidelities of
+   shape (64,)) and ``entry.dryrun_multichip(4)`` on a mesh of the card
+   repeated four times (the first four cards where a machine has them):
+   its five legs print their lines and hold the JAX package's bars (the
+   sharded APG solve and the sharded ideal QV bitwise equal to the
+   unsharded and per-shard runs), and the APG, trajectory and ideal
+   kernels' counters must move.
+
 Before it, one JSON line ``{"tomography": ...}`` holds phase 17's figures,
 one ``{"protocols": ...}`` phase 18's, one ``{"slice13": ...}`` phase
-19's and one ``{"examples": {name: {"s": ..., "launches": {...}}}}`` phase
-20's.
+19's, one ``{"examples": {name: {"s": ..., "launches": {...}}}}`` phase
+20's, one ``{"notebooks": {name: {"s": ..., "launches": {...}}}}`` phase
+21's and one ``{"entry": ...}`` phase 22's.
 The second-to-last line is the per-kernel JSON record: ``launches`` from
 the main paths; ``ms``/``plain_ms``: the kernel alone and the plain version
 at the main path's size (APG: headline schedule); ``bound_ms``: the larger
@@ -2665,6 +2686,444 @@ def phase_examples(card: str, dev: torch.device) -> dict:
     return record
 
 
+# ----------------------------------------------------------------------
+# 21. the notebooks of examples_torch/notebooks/ on the card
+# ----------------------------------------------------------------------
+
+NOTEBOOKS = ("chip_scan", "direct_fidelity_estimation", "distance_measures",
+             "entangled_states", "hinton_plots", "observable_estimation",
+             "quantum_volume", "quantum_volume_noisy",
+             "qubit_spectroscopy_cz_ramsey", "qubit_spectroscopy_rabi",
+             "qubit_spectroscopy_t1", "qubit_spectroscopy_t2",
+             "random_operators", "randomized_benchmarking",
+             "randomized_benchmarking_interleaved",
+             "randomized_benchmarking_unitarity", "readout_error_estimation",
+             "ripple_adder_benchmark", "robust_phase_estimation",
+             "state_and_process_plots", "superoperator_tools",
+             "tomography_process", "tomography_state")
+# (low, high) of every quantity phase 21 holds, by notebook: the bars of
+# tests/test_torch_notebooks*.py, which hold this table equal to their own
+NOTEBOOK_BARS = {
+    "chip_scan": {
+        "worst_p00": (0.95, 1), "min_state_fidelity": (0.95, 1.05),
+        "t1_error_us": (0, 10.0), "max_rb_error": (0, 0.05),
+        "min_cz_fidelity": (0.9, 1.05)},
+    "direct_fidelity_estimation": {
+        "ghz_error": (0, 0.02), "depolarized_error": (0, 0.02),
+        "cnot_error": (0, 0.05), "exhaustive_settings_error": (0, 0)},
+    "distance_measures": {
+        "states_error": (0, ROUND_OFF), "chernoff_error": (0, 1e-2),
+        "fuchs_van_de_graaf": (1, 1), "infidelity_error": (0, ROUND_OFF),
+        "diamond_error": (0, 1e-4), "watrous_error": (0, ROUND_OFF),
+        "entanglement_fidelity_error": (0, ROUND_OFF),
+        "tvd_error": (0, ROUND_OFF)},
+    "entangled_states": {
+        "ghz_bell_share": (0.99, 1), "parity_sigmas": (0, 5),
+        "local_sigmas": (0, 5)},
+    "hinton_plots": {"ptm_error": (0, ROUND_OFF)},
+    "observable_estimation": {
+        "runs_grouped": (3, 3), "ideal_correlator_error": (0, 0.05),
+        "ideal_z0": (-0.08, 0.08), "raw_stabilizer_max": (0.6, 0.85),
+        "calibrated_sigmas": (0, 4), "y_on_plus_x": (-0.11, 0.11)},
+    "quantum_volume": {
+        "qv": (32, 32), **{f"prob_d{d}": (0.75, 0.95) for d in (2, 3, 4, 5)},
+        "per_circuit_prob_d2": (0.7, 0.95), "per_circuit_prob_d3": (0.7, 0.95),
+        "per_circuit_gap": (0, 0.05)},
+    "quantum_volume_noisy": {
+        "ideal_qv": (2, 16), "noisy_qv": (1, 16),
+        **{f"ideal_prob_d{d}": (0.7, 0.95) for d in (2, 3, 4)},
+        **{f"noisy_prob_d{d}": (0.6, 0.9) for d in (2, 3, 4)},
+        "density_fraction": (0.6, 0.9), "trajectory_fraction": (0.6, 0.9),
+        "density_trajectory_gap": (0, 0.05)},
+    "qubit_spectroscopy_cz_ramsey": {
+        "ideal_offset_sigmas": (0, 5), "injected_sigmas": (0, 5)},
+    "qubit_spectroscopy_rabi": {
+        "ratio_sigmas": (0, 5), "overdrive_sigmas": (0, 5)},
+    "qubit_spectroscopy_t1": {
+        "t1_error_q0_us": (0, 3.0), "t1_error_q1_us": (0, 6.0)},
+    "qubit_spectroscopy_t2": {
+        "t2_star_us": (6.0, 48.0), "t2_echo_us": (6.0, 36.0),
+        "frequency_error_mhz": (0, 0.05)},
+    "random_operators": {
+        "unitarity": (0, 1e-10), "trace_sigmas": (0, 5),
+        "overlap_sigmas": (0, 3), "purity_gap": (0, 1),
+        "rank2_tail": (0, 1e-10)},
+    "randomized_benchmarking": {
+        "decay_sigmas": (0, 3), "simultaneous_sigmas": (0, 3),
+        "ptm_decay_error": (0, 1e-6)},
+    "randomized_benchmarking_interleaved": {
+        "decay_sigmas": (0, 3), "irb_lower": (0, 1), "irb_upper": (1, 2)},
+    "randomized_benchmarking_unitarity": {
+        "decay_sigmas": (0, 3), "unitarity_sigmas": (0, 4),
+        "coherent_unitarity": (0.99, 1.06)},
+    "readout_error_estimation": {
+        "confusion_sigmas": (0, 5), "joint_sigmas": (0, 5),
+        "marginal_sigmas": (0, 5)},
+    "ripple_adder_benchmark": {
+        "success_Z": (1, 1), "success_X": (1, 1),
+        "noisy_success_sigmas": (0, 5)},
+    "robust_phase_estimation": {
+        "rz_error": (0, 0.05), "rx_error": (0, 0.05),
+        "deepest_error_over_bound": (0, 3), "radius_error": (0, 0.1)},
+    "state_and_process_plots": {
+        "coords_error": (0, ROUND_OFF), "ptm_error": (0, ROUND_OFF),
+        "cz_square_error": (0, ROUND_OFF)},
+    "superoperator_tools": {
+        "chi00_error": (0, ROUND_OFF), "round_trip": (0, ROUND_OFF),
+        "apply_agreement": (0, ROUND_OFF), "kraus_recovered": (2, 2),
+        "cptp": (1, 1), "unital": (0, 0), "corrupted_cptp": (0, 0),
+        "repaired_cptp": (1, 1), "rank1_purity_error": (0, ROUND_OFF),
+        "rank2_mean_purity": (0.5, 1)},
+    "tomography_process": {
+        "state_fidelity": (0.95, 1.05), "process_fidelity": (0.85, 1.05),
+        "noisy_process_fidelity": (0.8, 0.99)},
+    "tomography_state": {
+        "mle_fidelity": (0.95, 1.05), "mle_min_eigenvalue": (-1e-9, 1),
+        "bootstrap_purity_error": (0, 0.03), "bootstrap_fidelity": (0.95, 1.05)},
+}
+NOTEBOOK_BUDGET_S = 120
+NB_P00_P11 = {"observable_estimation": (0.95, 0.90),
+              "readout_error_estimation": (0.97, 0.90),
+              "ripple_adder_benchmark": (0.95, 0.92)}
+
+
+def notebook_figures(name: str, ns: dict) -> dict:
+    """The quantities of ``examples_torch/notebooks/<name>.ipynb`` that
+    phase 21 holds to ``NOTEBOOK_BARS[name]``, read from the namespace its
+    cells leave (what they print), as distances from the analytic or
+    injected values where the bar is one."""
+    err = lambda value, want: float(np.max(np.abs(
+        np.asarray(value, dtype=float) - np.asarray(want, dtype=float))))
+    sig = lambda value, want, stderr: float(abs(value - want) / stderr)
+    f = {}
+    if name == "chip_scan":
+        f = {"worst_p00": min(ns["p00"].values()),
+             "min_state_fidelity": min(ns["fids"].values()),
+             "t1_error_us": err(list(ns["t1s"].values()), 20.0),
+             "max_rb_error": max(ns["errors"].values()),
+             "min_cz_fidelity": min(ns["cz_fids"].values())}
+    elif name == "direct_fidelity_estimation":
+        p = ns["p"]
+        f = {"ghz_error": abs(ns["ghz_fid"] - 1),
+             "depolarized_error": abs(ns["dep_fid"] - (1 - p / 2)),
+             "cnot_error": abs(ns["cnot_fid"] - 1),
+             "exhaustive_settings_error": err(
+                 ns["exh_counts"], [2 ** n - 1 for n in ns["ns"]])}
+    elif name == "distance_measures":
+        s = ns["states"]
+        ps = ns["ps"]
+        f = {"states_error": err(
+                [s["fidelity"], s["trace_distance"], s["purity"],
+                 s["bures_angle"], s["bures_distance"],
+                 s["hilbert_schmidt_ip"]],
+                [0.5, 0.5, 0.5, np.pi / 4, np.sqrt(2 - np.sqrt(2)), 0.5]),
+             "chernoff_error": abs(float(ns["qcb"]) - 0.5),
+             "fuchs_van_de_graaf": float(np.all(
+                 (1 - np.sqrt(ns["Fs"]) <= ns["Ts"] + 1e-12)
+                 & (ns["Ts"] <= np.sqrt(1 - ns["Fs"]) + 1e-12))),
+             "infidelity_error": err(
+                 ns["infid_dep"] + ns["infid_rot"],
+                 list(np.maximum(ps, 1e-9) / 2)
+                 + list(2 * np.sin(ps / 2) ** 2 / 3)),
+             "diamond_error": err(ns["dn_dep"] + ns["dn_rot"],
+                                  list(1.5 * np.maximum(ps, 1e-9))
+                                  + list(2 * np.sin(ps / 2))),
+             "watrous_error": err([ns["lo"], ns["hi"]], [0.6, 2.4]),
+             "entanglement_fidelity_error": abs(ns["ent_fid"] - 0.85),
+             "tvd_error": abs(ns["tvd"] - 0.075)}
+    elif name == "entangled_states":
+        st = ns["stats"]
+        want = -np.sin(ns["thetas"])
+        f = {"ghz_bell_share": st["bell"] / st["total"],
+             "parity_sigmas": float(np.max(
+                 np.abs(np.asarray(ns["parities"]) - want)
+                 / np.sqrt(np.maximum(1 - want ** 2, 1e-12) / 1500))),
+             "local_sigmas": float(np.max(np.abs(ns["locals_"]))
+                                   / np.sqrt(1 / 1500))}
+    elif name == "hinton_plots":
+        p = ns["p"]
+        f = {"ptm_error": err(ns["ptm"], [
+            [1, 0, 0, 0], [0, np.sqrt(1 - p), 0, 0],
+            [0, 0, np.sqrt(1 - p), 0], [p, 0, 0, 1 - p]])}
+    elif name == "observable_estimation":
+        p00, p11 = NB_P00_P11[name]
+        ideal = [r.expectation for r in ns["results"]]
+        cal = ns["cal"]
+        want = [1, -1, 1, (p00 - p11) / (p00 + p11 - 1)]
+        f = {"runs_grouped": len(ns["grouped"]),
+             "ideal_correlator_error": err(ideal[:3], [1, -1, 1]),
+             "ideal_z0": ideal[3],
+             "raw_stabilizer_max": float(np.max(np.abs(
+                 [r.expectation for r in ns["raw"][:3]]))),
+             "calibrated_sigmas": max(sig(r.expectation, w, r.std_err)
+                                      for r, w in zip(cal, want)),
+             "y_on_plus_x": ns["r"].expectation}
+    elif name == "quantum_volume":
+        res, per = ns["results"], ns["qvm_results"]
+        f = {"qv": ns["qv"],
+             **{f"prob_d{d}": res[d][0] for d in (2, 3, 4, 5)},
+             **{f"per_circuit_prob_d{d}": per[d][0] for d in (2, 3)},
+             "per_circuit_gap": max(abs(per[d][0] - res[d][0]) for d in per)}
+    elif name == "quantum_volume_noisy":
+        ideal, noisy = ns["ideal"], ns["noisy"]
+        total = ns["total"]
+        f = {"ideal_qv": ns["ideal_qv"], "noisy_qv": ns["noisy_qv"],
+             **{f"ideal_prob_d{d}": ideal[d][0] for d in (2, 3, 4)},
+             **{f"noisy_prob_d{d}": noisy[d][0] for d in (2, 3, 4)},
+             "density_fraction": ns["n_dens"] / total,
+             "trajectory_fraction": ns["n_traj"] / total,
+             "density_trajectory_gap": abs(ns["n_dens"] - ns["n_traj"])
+             / total}
+    elif name == "qubit_spectroscopy_cz_ramsey":
+        off = ns["fit"].params["offset"]
+        bad = ns["off"]
+        f = {"ideal_offset_sigmas": abs(off.value) / off.stderr,
+             "injected_sigmas": abs(abs(bad.value) - ns["phi"])
+             / max(bad.stderr, 2e-2)}
+    elif name == "qubit_spectroscopy_rabi":
+        fr = ns["fit"].params["frequency"]
+        ratio = ns["ratio"]
+        f = {"ratio_sigmas": abs(fr.value - 1) / fr.stderr,
+             "overdrive_sigmas": abs(ratio.value - ns["overdrive"])
+             / max(ratio.stderr, 1e-3)}
+    elif name == "qubit_spectroscopy_t1":
+        t1s = ns["t1s"]
+        f = {"t1_error_q0_us": abs(t1s[0] - 18.0),
+             "t1_error_q1_us": abs(t1s[1] - 32.0)}
+    elif name == "qubit_spectroscopy_t2":
+        f = {"t2_star_us": ns["t2_stars"][0],
+             "t2_echo_us": ns["t2_echoes"][0],
+             "frequency_error_mhz": abs(
+                 ns["fit"].params["frequency"].value - 1)}
+    elif name == "random_operators":
+        tr2, F = ns["tr2"], ns["F"]
+        purity = ns["purity"]
+        f = {"unitarity": float(ns["unitarity"]),
+             "trace_sigmas": abs(tr2.mean() - 1)
+             / (tr2.std() / np.sqrt(len(tr2))),
+             "overlap_sigmas": abs(F.mean() - 1 / ns["d"])
+             / (F.std() / np.sqrt(len(F))),
+             "purity_gap": float(purity(ns["rho_bu"]).mean()
+                                 - purity(ns["rho_hs"]).mean()),
+             "rank2_tail": float(np.abs(ns["ev_r2"][:, 2:]).max())}
+    elif name == "randomized_benchmarking":
+        decay = ns["fit"].params["decay"]
+        f = {"decay_sigmas": sig(decay.value, ns["expected_decay"],
+                                 decay.stderr),
+             "simultaneous_sigmas": max(
+                 sig(v, ns["injected"][g], e)
+                 for g, (v, e) in ns["simultaneous"].items()),
+             "ptm_decay_error": abs(ns["fit2"].params["decay"].value
+                                    - ns["p_noise"])}
+    elif name == "randomized_benchmarking_interleaved":
+        decay = ns["fit"].params["decay"]
+        f = {"decay_sigmas": sig(decay.value, ns["expected_decay"],
+                                 decay.stderr),
+             "irb_lower": ns["lo"], "irb_upper": ns["hi"]}
+    elif name == "randomized_benchmarking_unitarity":
+        decay = ns["rb_fit"].params["decay"]
+        u = ns["u_fit"].params["decay"]
+        f = {"decay_sigmas": sig(decay.value, ns["expected_decay"],
+                                 decay.stderr),
+             "unitarity_sigmas": sig(u.value, ns["expected_decay"] ** 2,
+                                     u.stderr),
+             "coherent_unitarity": ns["u_c"]}
+    elif name == "readout_error_estimation":
+        p00, p11 = NB_P00_P11[name]
+        one = np.array([[p00, 1 - p00], [1 - p11, p11]])
+        f = {"confusion_sigmas": binomial_sigmas(ns["cm"], one, 20000),
+             "joint_sigmas": binomial_sigmas(ns["cm01"], np.kron(one, one),
+                                             5000),
+             "marginal_sigmas": binomial_sigmas(ns["marg"], one, 10000)}
+    elif name == "ripple_adder_benchmark":
+        p00, p11 = NB_P00_P11[name]
+        want = np.mean([np.prod([p11 if (a + b) >> k & 1 else p00
+                                 for k in range(3)])
+                        for a in range(4) for b in range(4)])
+        f = {"success_Z": ns["success"]["Z"], "success_X": ns["success"]["X"],
+             "noisy_success_sigmas": binomial_sigmas(
+                 np.mean(ns["probs_n"]), want, 16 * 200)}
+    elif name == "robust_phase_estimation":
+        f = {"rz_error": abs(ns["estimates"][(0,)] - ns["angle"]),
+             "rx_error": abs(ns["est_x"][(0,)] - ns["angle_x"]),
+             "deepest_error_over_bound": ns["errs"][-1] / ns["bounds"][-1],
+             "radius_error": err(ns["radii"], 1.0)}
+    elif name == "state_and_process_plots":
+        theta = ns["theta"]
+        c, s = np.cos(theta), np.sin(theta)
+        f = {"coords_error": err(
+                np.concatenate([ns["coords"][k] for k in ns["states"]]),
+                [0.5, 0, 0, 0.5, 0.5, 0.5, 0, 0, 0.5, 0, 0, 0]),
+             "ptm_error": err(np.stack(list(ns["ptms"].values())), [
+                 [[1, 0, 0, 0], [0, 0, 0, 1], [0, 0, -1, 0], [0, 1, 0, 0]],
+                 [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, c, -s], [0, 0, s, c]],
+                 np.diag([1, 0.7, 0.7, 0.7])]),
+             "cz_square_error": err(ns["ptm2"] @ ns["ptm2"], np.eye(16))}
+    elif name == "superoperator_tools":
+        p = 0.1
+        purities = ns["purities"]
+        f = {"chi00_error": abs(float(ns["chi"][0, 0].real)
+                                - (1 + np.sqrt(1 - p)) ** 2 / 4),
+             "round_trip": float((ns["superop2choi"](ns["sop_"])
+                                  - ns["choi"]).abs().max()),
+             "apply_agreement": float((ns["out_k"] - ns["out_c"])
+                                      .abs().max()),
+             "kraus_recovered": len(ns["kraus_back"]),
+             "cptp": float(ns["choi_is_cptp"](ns["choi"])),
+             "unital": float(ns["choi_is_unital"](ns["choi"])),
+             "corrupted_cptp": float(ns["choi_is_cptp"](ns["corrupted"])),
+             "repaired_cptp": float(ns["choi_is_cptp"](ns["repaired"],
+                                                       atol=1e-3)),
+             "rank1_purity_error": err(purities[1], 1.0),
+             "rank2_mean_purity": float(purities[2].mean())}
+    elif name == "tomography_process":
+        f = {"state_fidelity": ns["state_fidelity"],
+             "process_fidelity": float(ns["pf"].real),
+             "noisy_process_fidelity": float(ns["pf_noisy"].real)}
+    elif name == "tomography_state":
+        f = {"mle_fidelity": ns["fids"]["MLE"],
+             "mle_min_eigenvalue": ns["min_eigs"]["iterative MLE"],
+             "bootstrap_purity_error": abs(ns["mean_p"] - float(np.real(
+                 np.trace(ns["rho_true"] @ ns["rho_true"])))),
+             "bootstrap_fidelity": ns["mean_f"]}
+    return {k: float(v) for k, v in f.items()}
+
+
+def notebook_failures(name: str, figures: dict) -> list:
+    """The quantities of ``name`` outside their bars, as text."""
+    return [f"{name}: {k} = {v!r} outside [{lo}, {hi}]"
+            for k, v in figures.items()
+            for lo, hi in [NOTEBOOK_BARS[name][k]] if not lo <= v <= hi]
+
+
+@functools.lru_cache(maxsize=None)
+def load_runner():
+    """``examples_torch/notebooks/_runner.py`` as a module (registered as
+    ``notebook_runner``)."""
+    import importlib.util
+    path = pathlib.Path(__file__).resolve().parent / "examples_torch" / \
+        "notebooks" / "_runner.py"
+    spec = importlib.util.spec_from_file_location("notebook_runner", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_notebooks(card: str, dev: torch.device) -> dict:
+    """21. Every notebook of examples_torch/notebooks/ on the card, with the
+    runner's default ``DEVICE = "cuda"`` as a user runs them (``dev`` is
+    the card that is); see the module docstring."""
+    t_phase = time.perf_counter()
+    runner = load_runner()
+    counters = port_launches()
+    drawing = runner.have_matplotlib()
+    record, failures = {}, []
+    for name in NOTEBOOKS:
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        per_cell = []
+
+        def on_cell(run, per_cell=per_cell):
+            per_cell.append((run, {c.__name__: c.launches for c in counters}))
+
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            ns, runs = runner.run_notebook(name, on_cell=on_cell)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = {c.__name__: c.launches for c in counters}
+        figures = notebook_figures(name, ns)
+        failures += notebook_failures(name, figures)
+        figure_cells = [r for r in runs if r.cell.figure]
+        moved, before = {}, {c.__name__: 0 for c in counters}
+        for run, seen in per_cell:
+            delta = {k: seen[k] - before[k] for k in seen if seen[k] > before[k]}
+            if delta:
+                moved[run.cell.index] = delta
+            before = seen
+        record[name] = {"s": seconds, "launches": after,
+                        "cells": len(runs), "figure_cells": len(figure_cells),
+                        "launches_by_cell": moved}
+        print(f"notebook {name}: {seconds:.3f} s (host) on {card}; "
+              f"{len(runs)} code cells, {len(figure_cells)} figure cells "
+              + ("drawn (Agg)" if drawing else "raised ImportError (no "
+                 "matplotlib)")
+              + f"; kernel launches {after}, by cell {moved}")
+        for line in buf.getvalue().splitlines():
+            print(f"  | {line}")
+        print(f"  quantities: {json.dumps(figures)}")
+    qv = record["quantum_volume"]["launches"]
+    print(f"quantum_volume notebook: {qv['ideal_probs']} ideal-kernel "
+          f"launches")
+    check(qv["ideal_probs"] > 0,
+          "quantum_volume notebook: the ideal QV kernel was not launched")
+    runner_cells = {c.index: c for c in
+                    runner.code_cells("quantum_volume_noisy")}
+    traj_cells = [i for i, c in runner_cells.items()
+                  if 'noisy_method="trajectory"' in c.source]
+    moved = [record["quantum_volume_noisy"]["launches_by_cell"].get(i, {})
+             .get("traj_probs", 0) for i in traj_cells]
+    print(f"quantum_volume_noisy notebook: trajectory cell(s) {traj_cells} "
+          f"launched the trajectory kernel {moved} time(s)")
+    check(traj_cells and all(m > 0 for m in moved),
+          "quantum_volume_noisy: the trajectory kernel was not launched in "
+          "its trajectory cell")
+    check(not failures, "; ".join(failures))
+    record["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 21: {record['phase_s']:.1f} s (budget {NOTEBOOK_BUDGET_S} "
+          f"s) for {len(NOTEBOOKS)} notebooks")
+    return record
+
+
+# ----------------------------------------------------------------------
+# 22. the entry step and the multi-device dry run on the card
+# ----------------------------------------------------------------------
+
+DRYRUN_DEVICES = 4
+
+
+def phase_entry(card: str, dev: torch.device) -> dict:
+    """22. ``entry.entry()`` once and ``entry.dryrun_multichip(4)`` on the
+    card; see the module docstring."""
+    t_phase = time.perf_counter()
+    from forest_benchmarking_tpu_torch import entry
+    counters = port_launches()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    step, args = entry.entry()
+    t0 = time.perf_counter()
+    pf, mean_pf = step(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    check(pf.shape == (entry.ENTRY_BATCH,) and bool(torch.isfinite(pf).all()),
+          f"entry(): pf {tuple(pf.shape)}")
+    step_launches = {c.__name__: c.launches for c in counters}
+    print(f"entry(): step at B = {entry.ENTRY_BATCH} ran in {step_s:.3f} s "
+          f"(host) on {pf.device}, pf mean {float(mean_pf):.4f}, finite; "
+          f"kernel launches {step_launches}")
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    legs = entry.dryrun_multichip(DRYRUN_DEVICES)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    moved = {c.__name__: c.launches for c in counters}
+    print(f"dryrun_multichip({DRYRUN_DEVICES}): {dry_s:.3f} s (host) on "
+          f"{card}; kernel launches {moved}")
+    for name in ("apg_fused", "traj_probs", "ideal_probs"):
+        check(moved[name] > 0, f"dryrun_multichip: {name} did not launch")
+    record = {"step_s": step_s, "step_mean_pf": float(mean_pf),
+              "step_launches": step_launches, "dryrun_s": dry_s,
+              "dryrun_launches": moved, "legs": legs,
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"phase 22: {record['phase_s']:.1f} s")
+    return record
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3352,6 +3811,14 @@ def main() -> int:
     # quantum-volume example)
     examples_record = phase_examples(card, dev)
 
+    # 21. every notebook of examples_torch/notebooks/ (the ideal QV kernel
+    # in quantum_volume, the trajectory kernel in quantum_volume_noisy)
+    notebooks_record = phase_notebooks(card, dev)
+
+    # 22. the entry step and the dry run over a 4-shard mesh (the APG,
+    # trajectory and ideal kernels)
+    entry_record = phase_entry(card, dev)
+
     def record(name, source, replaces, launch_count, err, ms_k, ms_p, bound,
                library_ms=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -3368,6 +3835,10 @@ def main() -> int:
     print(json.dumps({"slice13": slice13_record}, default=float))
     print(json.dumps({"examples": {k: v for k, v in examples_record.items()
                                    if k != "phase_s"}}))
+    print(json.dumps({"notebooks": {
+        k: {"s": v["s"], "launches": v["launches"]}
+        for k, v in notebooks_record.items() if k != "phase_s"}}))
+    print(json.dumps({"entry": entry_record}, default=float))
     print(json.dumps({"kernels": [
         record("apg_fused", apg_src,
                "forest_benchmarking_tpu/ops/lanes_apg.py:674", launches,

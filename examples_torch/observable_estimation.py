@@ -26,27 +26,11 @@ from forest_benchmarking_tpu_torch.sim import QVM
 
 
 class NoisyReadoutQVM(QVM):
-    """Asymmetric readout noise on every measured qubit. The QVM runs all
-    the flip patterns of a symmetrized run in one batched call, not through
-    ``run``, so both entry points attach the noise."""
-
-    @staticmethod
-    def _noisy(circuit, qubits):
+    def run(self, circuit, qubits, num_shots):
         noisy = circuit.copy()
         for q in qubits:
             noisy.define_noisy_readout(q, p00=0.95, p11=0.90)
-        return noisy
-
-    def run(self, circuit, qubits, num_shots):
-        return super().run(self._noisy(circuit, qubits), qubits, num_shots)
-
-    def run_symmetrized_readout(self, circuit, num_shots, symm_type=-1,
-                                meas_qubits=None):
-        if meas_qubits is None:
-            meas_qubits = sorted(circuit.get_qubits())
-        return super().run_symmetrized_readout(
-            self._noisy(circuit, meas_qubits), num_shots, symm_type,
-            meas_qubits)
+        return super().run(noisy, qubits, num_shots)
 
 
 def main(device="cuda", out_dir="/tmp"):

@@ -14,12 +14,17 @@ order and measurement order:
   (``nx.Graph([(1, 2), (0, 1)]).edges`` is ``[(1, 2), (1, 0)]``);
 - ``topological_sort``: the generations of ``nx.topological_generations``,
   roots in node order, then children in successor order.
+
+:func:`line_graph` and :func:`edge_subgraph` build what ``networkx``'s
+functions of those names build, in their node and neighbour orders, which
+decide the first match of the VF2 matcher (:mod:`._vf2`) and so the adder's
+register layout.
 """
 from __future__ import annotations
 
 from typing import Dict, Hashable, Iterable, List, Tuple
 
-__all__ = ["_Graph", "path_graph"]
+__all__ = ["_Graph", "path_graph", "line_graph", "edge_subgraph"]
 
 
 class _Graph:
@@ -184,3 +189,59 @@ def path_graph(n: int) -> _Graph:
     for i in range(n - 1):
         graph.add_edge(i, i + 1)
     return graph
+
+
+def line_graph(graph) -> _Graph:
+    """The line graph of an undirected graph, as ``networkx.line_graph``
+    builds it (``networkx.generators.line._lg_undirected``): a node per edge,
+    the pair ordered by the nodes' positions in ``graph``; a node of degree
+    one adds its edge's node first, every other node of the line graph
+    comes with its first edge, in the iteration order of the set of edges
+    ``networkx`` collects (the same operations on the same tuples, so the
+    same order)."""
+    graph = _Graph.from_any(graph)
+    node_index = {n: i for i, n in enumerate(graph.nodes)}
+
+    def edge_key_function(edge):
+        return node_index[edge[0]], node_index[edge[1]]
+
+    out = _Graph()
+    edges = set()
+    for u in graph.nodes:
+        nodes = [tuple(sorted((u, v), key=node_index.get))
+                 for v in graph.neighbors(u)]
+        if len(nodes) == 1:
+            out.add_node(nodes[0])
+        for i, a in enumerate(nodes):
+            edges.update([tuple(sorted((a, b), key=edge_key_function))
+                          for b in nodes[i + 1:]])
+    for a, b in edges:
+        out.add_edge(a, b)
+    return out
+
+
+def edge_subgraph(graph, edges) -> _Graph:
+    """The subgraph of ``graph`` made of ``edges`` and their end nodes, as
+    ``networkx.Graph(graph.edge_subgraph(edges))`` builds it: the nodes in
+    ``graph``'s order, or, where they are fewer than half of its nodes, in
+    the iteration order of the set ``networkx``'s node filter holds; each
+    node's neighbours in ``graph``'s order."""
+    graph = _Graph.from_any(graph)
+    edges = set(edges)
+    nodes = set()
+    for e in edges:
+        nodes.update(e[:2])
+    nodes = set(nodes)          # the filter's own copy, iterated below
+    shown = edges | {(v, u) for (u, v) in edges}
+    if 2 * len(nodes) < len(graph):
+        order = [n for n in nodes if n in graph]
+    else:
+        order = [n for n in graph.nodes if n in nodes]
+    out = _Graph()
+    for node in order:
+        out.add_node(node)
+    for u in order:
+        for v in graph.neighbors(u):
+            if v in nodes and (u, v) in shown:
+                out.add_edge(u, v)
+    return out

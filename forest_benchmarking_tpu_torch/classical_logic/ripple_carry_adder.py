@@ -4,9 +4,8 @@ Port of ``forest_benchmarking_tpu/classical_logic/ripple_carry_adder.py``.
 A topology is a list of ``(u, v)`` pairs or any object with ``nodes`` and
 ``edges`` (a ``networkx`` graph), read through the port's own
 :class:`~.._graph._Graph`; the port does not import ``networkx``.
-:func:`get_qubit_registers_for_adder` finds its layout by a depth-first
-search for a simple path, not by ``networkx``'s VF2 matcher: the same
-layout on path graphs, another valid one where a graph holds several paths.
+:func:`get_qubit_registers_for_adder` takes the first match of the port's
+copy of ``networkx``'s VF2 matcher (:mod:`.._vf2`), as the JAX package does.
 
 Reference parity: forest/benchmarking/classical_logic/ripple_carry_adder.py —
 assign_registers_to_line_or_cycle:37, get_qubit_registers_for_adder:90
@@ -16,11 +15,13 @@ get_error_hamming_distributions_from_results:350.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from forest_benchmarking_tpu_torch._graph import _Graph, path_graph
+from forest_benchmarking_tpu_torch._graph import (
+    _Graph, edge_subgraph, line_graph, path_graph)
+from forest_benchmarking_tpu_torch._vf2 import subgraph_isomorphisms_iter
 from forest_benchmarking_tpu_torch.circuits import Circuit, CNOT, H
 from forest_benchmarking_tpu_torch.classical_logic.primitives import (
     CNOT_X_basis, majority_gate, unmajority_add_gate)
@@ -66,29 +67,6 @@ def assign_registers_to_line_or_cycle(start: int, graph,
     return interleaved[1::2], interleaved[0::2], path[0], path[-1]
 
 
-def _simple_path(graph: _Graph, n_nodes: int) -> Optional[List]:
-    """The first simple path of ``n_nodes`` nodes that a depth-first search
-    finds: start nodes in node order, neighbours in order; None if there is
-    none."""
-    def extend(path, on_path):
-        if len(path) == n_nodes:
-            return path
-        for v in graph.neighbors(path[-1]):
-            if v not in on_path:
-                on_path.add(v)
-                found = extend(path + [v], on_path)
-                if found:
-                    return found
-                on_path.discard(v)
-        return None
-
-    for start in graph.nodes:
-        found = extend([start], {start})
-        if found:
-            return found
-    return None
-
-
 def get_qubit_registers_for_adder(topology, num_length: int,
                                   qubits: Optional[Sequence[int]] = None) \
         -> Tuple[Sequence[int], Sequence[int], int, int]:
@@ -98,12 +76,6 @@ def get_qubit_registers_for_adder(topology, num_length: int,
     topology graph is passed directly (the in-process simulator is
     all-to-all, so any graph you like): ``(u, v)`` pairs or an object with
     ``nodes`` and ``edges``.
-
-    The JAX package takes the first match of ``networkx``'s VF2 matcher of a
-    path on the line graph; the port takes the first simple path of
-    2 n + 2 nodes of a depth-first search (:func:`_simple_path`). On path
-    graphs both give the same layout; on graphs with several such paths
-    (cycles, grids) each gives a valid one, not always the same.
     """
     graph = _Graph.from_any(topology)
     if qubits is not None:
@@ -111,18 +83,15 @@ def get_qubit_registers_for_adder(topology, num_length: int,
             if qubit not in qubits:
                 graph.remove_node(qubit)
 
+    lines = line_graph(graph)
     num_desired_nodes = 2 * num_length + 2
-    path = _simple_path(graph, num_desired_nodes)
-    if path is None:
+    desired_layout = path_graph(num_desired_nodes - 1)
+    try:
+        edge_iso = next(subgraph_isomorphisms_iter(lines, desired_layout))
+    except StopIteration:
         raise ValueError("An appropriate layout for the qubits could not be "
                          "found among the provided qubits.")
-    on_path = set(path)
-    subgraph = _Graph()
-    for node in graph.nodes:
-        if node in on_path:
-            subgraph.add_node(node)
-    for u, v in zip(path, path[1:]):
-        subgraph.add_edge(u, v)
+    subgraph = edge_subgraph(graph, edge_iso.keys())
     start_node = -1
     for node in subgraph.nodes:
         if subgraph.degree(node) == 1:

@@ -409,6 +409,9 @@ def _generator(generator: Optional[torch.Generator],
     if generator is None:
         return torch.Generator(device=dev).manual_seed(0)
     gdev = torch.device(generator.device)
+    if gdev.type == "cuda" and gdev.index is None:
+        # torch.Generator(device="cuda") draws on the current card
+        gdev = torch.device("cuda", torch.cuda.current_device())
     if gdev.type != dev.type or (dev.type == "cuda" and gdev.index != dev.index):
         raise ValueError(f"generator on {gdev} but device={dev}")
     return generator

@@ -165,6 +165,14 @@ class QVM:
         Pattern i gets ``num_shots // n_patterns`` shots, plus one for the
         first ``num_shots % n_patterns`` patterns. ``meas_qubits`` defaults
         to the circuit's own qubits (sorted).
+
+        A plain QVM samples every pattern in one batched call. Each pattern
+        runs on its own through ``self.run``, with real X gates, where the
+        circuit attaches a noise channel to X (the batched flip layer
+        applies ideal flips) and where a subclass overrides ``run`` (a
+        subclass that adds readout noise there must see it in symmetrized
+        runs too, as the JAX package's QVM on the CPU and pyquil, which
+        append the flips to the program, give it).
         """
         if meas_qubits is None:
             meas_qubits = sorted(circuit.get_qubits())
@@ -176,14 +184,10 @@ class QVM:
         base = num_shots // n_patterns
         rem = num_shots - base * n_patterns
 
-        # the batched flip layer applies IDEAL I/X unitaries; if the circuit
-        # attaches a noise channel to X gates, each pattern runs on its own
-        # with real X gates that pick up that channel, as appending flip
-        # gates in pyquil does
         flip_noise = any(
             name == "X" and (qs is None or any(q in meas_qubits for q in qs))
             for name, qs, _ in circuit.gate_noise)
-        if not flip_noise:
+        if not flip_noise and type(self).run is QVM.run:
             plan = self._plan(circuit, meas_qubits)
             bits = sample_bits_symmetrized(
                 plan, patterns, base + (1 if rem else 0),

@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Spread of the example scripts' statistical figures over seeds.
+"""Spread of the example scripts' and notebooks' statistical figures over
+seeds.
 
 Runs ``main`` of each script of ``examples_torch/`` (by default the
-statistical ones) on ``--device`` (the CPU by default; ``cuda`` on the
-card) once for each of ``--seeds`` seed offsets:
+statistical ones), or with ``--notebooks`` each notebook of
+``examples_torch/notebooks/`` through its plain-Python runner (by default
+all 23), on ``--device`` (the CPU by default; ``cuda`` on the card) once
+for each of ``--seeds`` seed offsets:
 every ``QVM``, ``torch.Generator`` and ``numpy.random.RandomState`` the
-script and the port create while it runs is seeded ``1000 * k`` above what
-the script asks for. Prints, for every figure ``chip_smoke.py`` holds, its
-range over the seeds beside its bar (``chip_smoke.EXAMPLE_BARS``), and the
-seeds that leave the bar. A run on the card draws from other streams, so
+script or notebook and the port create while it runs is seeded ``1000 * k``
+above what it asks for. Prints, for every figure ``chip_smoke.py`` holds,
+its range over the seeds beside its bar (``chip_smoke.EXAMPLE_BARS``,
+``chip_smoke.NOTEBOOK_BARS``), and the seeds that leave the bar. A run on the card draws from other streams, so
 this spread is what the bars must leave room for.
 
     python3 scripts/example_spread.py --seeds 20
     python3 scripts/example_spread.py --seeds 5 chip_scan
     python3 scripts/example_spread.py --device cuda --seeds 10
+    python3 scripts/example_spread.py --notebooks --seeds 20
+    python3 scripts/example_spread.py --notebooks --seeds 5 quantum_volume
 
 One process, float64; a few minutes for 20 seeds on the CPU.
 """
@@ -75,25 +80,48 @@ def load(name: str):
     return module
 
 
+def run_script(name: str, device: str) -> dict:
+    out = load(name).main(device=device, out_dir=str(ROOT / "build"))
+    return chip_smoke.example_figures(name, out)
+
+
+def run_notebook(name: str, device: str) -> dict:
+    namespace, _ = chip_smoke.load_runner().run_notebook(name, device=device)
+    return chip_smoke.notebook_figures(name, namespace)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seeds", type=int, default=20)
     parser.add_argument("--device", default="cpu")
-    parser.add_argument("names", nargs="*", default=STATISTICAL)
+    parser.add_argument("--notebooks", action="store_true",
+                        help="the notebooks, not the scripts")
+    parser.add_argument("names", nargs="*")
     args = parser.parse_args()
     torch.set_num_threads(1)
-    for name in args.names:
-        module = load(name)
-        rows = {}
+    if args.notebooks:
+        names = args.names or chip_smoke.NOTEBOOKS
+        bars, run = chip_smoke.NOTEBOOK_BARS, run_notebook
+    else:
+        names = args.names or STATISTICAL
+        bars, run = chip_smoke.EXAMPLE_BARS, run_script
+    for name in names:
+        rows, failed = {}, []
         for k in range(args.seeds):
-            with seed_offset(1000 * k), contextlib.redirect_stdout(io.StringIO()):
-                out = module.main(device=args.device,
-                                  out_dir=str(ROOT / "build"))
-            for fig, v in chip_smoke.example_figures(name, out).items():
+            try:
+                with seed_offset(1000 * k), \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    figures = run(name, args.device)
+            except AssertionError as err:   # a notebook's own assert
+                failed.append((k, str(err)))
+                continue
+            for fig, v in figures.items():
                 rows.setdefault(fig, []).append(v)
         print(f"{name} ({args.seeds} seeds, {args.device}):", flush=True)
+        if failed:
+            print(f"  seeds whose own asserts failed: {failed}")
         for fig, vals in rows.items():
-            lo, hi = chip_smoke.EXAMPLE_BARS[name][fig]
+            lo, hi = bars[name][fig]
             out_of_bar = [k for k, v in enumerate(vals) if not lo <= v <= hi]
             print(f"  {fig}: min {min(vals):.6g} median {np.median(vals):.6g} "
                   f"max {max(vals):.6g}; bar [{lo}, {hi}]; seeds outside: "

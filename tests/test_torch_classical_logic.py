@@ -5,10 +5,11 @@ JAX package.
   both bases, gate for gate and in measurement order.
 - ``get_qubit_registers_for_adder`` equal to the JAX package's layout on
   path graphs (its own default topology and every JAX test's), with and
-  without ``qubits``; on cycles and grids, where the JAX package's
-  ``networkx`` VF2 matcher and the port's depth-first search may pick
-  different paths, a valid layout: 2n + 2 distinct nodes
-  within ``qubits`` whose consecutive pairs are edges.
+  without ``qubits``, and on cycles, grids and random connected graphs:
+  the port's ``line_graph``, ``edge_subgraph`` and VF2 matcher
+  (``_vf2``) take ``networkx``'s orders and its first match. Every
+  layout is valid: 2n + 2 distinct nodes within ``qubits`` whose
+  consecutive pairs are edges.
 - The adder tests of ``tests/test_readout_and_logic.py:142-185`` on
   ``QVM(device="cpu")``; the adder programs' probabilities within
   ``PROB_BAR`` (1e-12) of the JAX package's float64 QVM; the success and
@@ -19,9 +20,12 @@ import networkx as nx
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 import forest_benchmarking_tpu.classical_logic as jcl
-from forest_benchmarking_tpu_torch._graph import path_graph
+from forest_benchmarking_tpu_torch._graph import (
+    edge_subgraph, line_graph, path_graph)
+from forest_benchmarking_tpu_torch._vf2 import subgraph_isomorphisms_iter
 from forest_benchmarking_tpu_torch.classical_logic import (
     CNOT_X_basis, CCNOT_X_basis, majority_gate, unmajority_add_gate,
     unmajority_add_parallel_gate, adder, get_qubit_registers_for_adder,
@@ -117,19 +121,100 @@ def test_registers_are_valid_on_cycles_and_grids(case):
     graph, n_bits, qubits = CYCLE_GRID_CASES[case]
     ours = get_qubit_registers_for_adder(graph, n_bits, qubits)
     assert_valid_layout(graph, ours, n_bits, qubits)
-    # the JAX package's layout is valid too, but may be another one
-    assert_valid_layout(graph, jcl.get_qubit_registers_for_adder(
-        graph, n_bits, qubits), n_bits, qubits)
+    # and it is the JAX package's
+    assert as_lists(ours) == as_lists(jcl.get_qubit_registers_for_adder(
+        graph, n_bits, qubits))
 
 
-def test_cycle_layout_differs_from_jax():
-    """Where a graph holds several paths the layouts may differ: on an
-    8-cycle the JAX package's VF2 match starts the path at node 1, the
-    port's depth-first search at node 0."""
+def test_cycle_layout_equals_jax():
+    """Where a graph holds several paths the port takes the path the JAX
+    package's VF2 match takes: on an 8-cycle it starts at node 1."""
     assert as_lists(jcl.get_qubit_registers_for_adder(nx.cycle_graph(8), 3)) \
         == ([7, 5, 3], [0, 6, 4], 1, 2)
     assert as_lists(get_qubit_registers_for_adder(nx.cycle_graph(8), 3)) == \
-        ([2, 4, 6], [1, 3, 5], 0, 7)
+        ([7, 5, 3], [0, 6, 4], 1, 2)
+    grid = nx.convert_node_labels_to_integers(nx.grid_2d_graph(2, 4))
+    assert as_lists(get_qubit_registers_for_adder(grid, 3)) == \
+        as_lists(jcl.get_qubit_registers_for_adder(grid, 3))
+
+
+@st.composite
+def adder_topologies(draw):
+    """A connected graph (cycle, grid with integer or tuple nodes, ladder,
+    random), its nodes relabelled in a drawn order, an adder width and,
+    sometimes, a ``qubits`` subset."""
+    kind = draw(st.sampled_from(["cycle", "grid", "grid_tuples", "ladder",
+                                 "random", "random"]))
+    if kind == "cycle":
+        graph = nx.cycle_graph(draw(st.integers(3, 12)))
+    elif kind == "grid":
+        graph = nx.convert_node_labels_to_integers(nx.grid_2d_graph(
+            draw(st.integers(2, 3)), draw(st.integers(2, 4))))
+    elif kind == "grid_tuples":
+        graph = nx.grid_2d_graph(draw(st.integers(2, 3)),
+                                 draw(st.integers(2, 4)))
+    elif kind == "ladder":
+        graph = nx.ladder_graph(draw(st.integers(2, 5)))
+    else:
+        n = draw(st.integers(3, 10))
+        graph = nx.gnp_random_graph(n, draw(st.floats(0.2, 0.8)),
+                                    seed=draw(st.integers(0, 2 ** 31)))
+        if not nx.is_connected(graph):
+            graph = nx.path_graph(n)
+    if kind != "grid_tuples":
+        nodes = list(graph.nodes)
+        order = draw(st.permutations(nodes))
+        graph = nx.relabel_nodes(graph, dict(zip(nodes, order)))
+    n_bits = draw(st.integers(1, 3))
+    qubits = None
+    if len(graph) >= 2 * n_bits + 2 and draw(st.booleans()):
+        nodes = list(graph.nodes)
+        keep = draw(st.lists(st.sampled_from(range(len(nodes))),
+                             min_size=2 * n_bits + 2, unique=True))
+        qubits = [nodes[i] for i in keep]
+    return graph, n_bits, qubits
+
+
+def layout_or_raise(fn, graph, n_bits, qubits):
+    try:
+        return as_lists(fn(graph, n_bits, qubits))
+    except ValueError as err:
+        assert "appropriate layout" in str(err)
+        return "no layout"
+
+
+@settings(max_examples=200, deadline=None, derandomize=True)
+@given(adder_topologies())
+def test_line_graph_vf2_and_layout_equal_networkx_and_jax(case):
+    """On 200 drawn graphs: the port's line graph has ``networkx``'s nodes
+    and neighbour orders, its VF2 matcher yields ``networkx``'s first match
+    (the same pairs in the same order), the edge subgraph of that match
+    has ``networkx``'s node order, and the adder layout is the JAX
+    package's (or both raise)."""
+    graph, n_bits, qubits = case
+    sub = graph.copy()        # as the JAX function trims it to ``qubits``
+    if qubits is not None:
+        sub.remove_nodes_from([q for q in list(sub.nodes) if q not in qubits])
+    lines_nx, lines = nx.line_graph(sub), line_graph(sub)
+    assert lines.nodes == list(lines_nx.nodes)
+    for node in lines.nodes:
+        assert lines.neighbors(node) == list(lines_nx.neighbors(node))
+    path = nx.path_graph(2 * n_bits + 1)
+    theirs = next(nx.algorithms.isomorphism.GraphMatcher(
+        lines_nx, path).subgraph_isomorphisms_iter(), None)
+    ours = next(subgraph_isomorphisms_iter(lines, path), None)
+    if theirs is None:
+        assert ours is None
+    else:
+        assert list(ours.items()) == list(theirs.items())
+        assert edge_subgraph(sub, ours.keys()).nodes == list(
+            nx.Graph(sub.edge_subgraph(theirs.keys())).nodes)
+    want = layout_or_raise(jcl.get_qubit_registers_for_adder, graph, n_bits,
+                           qubits)
+    assert layout_or_raise(get_qubit_registers_for_adder, graph, n_bits,
+                           qubits) == want
+    if want != "no layout":
+        assert_valid_layout(graph, want, n_bits, qubits)
 
 
 def test_no_layout_raises_as_jax():

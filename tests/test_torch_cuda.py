@@ -979,3 +979,32 @@ def test_sample_heavy_outputs_sharded_on_the_card(cuda):
             fold_in(parent, i, cuda), 8, 32, 200, device=cuda, **kw)
             for i in range(2)])
         assert torch.equal(got, want)
+
+
+def test_dryrun_multichip_on_the_card(cuda):
+    """``entry.dryrun_multichip(2)`` on the card (its mesh repeats the card
+    where the machine has one): all five legs pass their bars, the sharded
+    APG solve and ideal QV bitwise, and the APG, trajectory and ideal
+    kernels launch."""
+    from forest_benchmarking_tpu_torch import entry
+    before = {f: f.launches for f in (lanes_apg.apg_fused,
+                                      pallas_traj.traj_probs,
+                                      pallas_traj.ideal_probs)}
+    out = entry.dryrun_multichip(2)
+    torch.cuda.synchronize()
+    assert out["fused_shard_gap"] == 0.0
+    assert 0.08 < out["fused_mean_rel"] < 0.20
+    assert out["dnorm_shard_gap"] < 1e-5
+    for f, n in before.items():
+        assert f.launches > n, f.__name__
+
+
+def test_qv_takes_a_card_generator_made_without_an_index(cuda):
+    """``torch.Generator(device="cuda")`` (as the notebooks make it) draws
+    on the current card: the batched QV entry points take it with
+    ``device="cuda"`` and give what a generator on ``cuda:0`` gives."""
+    runs = [quantum_volume.measure_quantum_volume_batched(
+        torch.Generator(device=d).manual_seed(3), max_depth=3,
+        num_circuits=16, num_shots=50, device=d)
+        for d in ("cuda", cuda)]
+    assert runs[0] == runs[1]

@@ -73,7 +73,7 @@ def test_port_imports_without_jax_package_or_toolchain():
                  "classical_logic.primitives",
                  "classical_logic.ripple_carry_adder", "parallel",
                  "parallel.sharding", "plotting", "plotting.hinton",
-                 "plotting.state_process"):
+                 "plotting.state_process", "_vf2", "entry"):
         assert f"forest_benchmarking_tpu_torch.{name}" in info["names"]
     assert info["jax"] == []
     assert info["jax_package"] == []
@@ -82,6 +82,35 @@ def test_port_imports_without_jax_package_or_toolchain():
     assert not info["cpp_extension"]
     assert info["loaded"] == 0
     assert info["build_unchanged"]
+
+
+_NOTEBOOK_AND_ENTRY = """
+import contextlib, io, json, sys
+import numpy, torch
+sys.modules["matplotlib"] = None   # as on the card's machine
+sys.path.insert(0, "examples_torch/notebooks")
+import _runner
+with contextlib.redirect_stdout(io.StringIO()):
+    _runner.run_notebook("observable_estimation", device="cpu")
+from forest_benchmarking_tpu_torch import entry
+step, args = entry.entry(device="cpu")
+print(json.dumps([m for m in sys.modules if m == "jax"
+                  or m.startswith(("jax.", "forest_benchmarking_tpu."))
+                  or m == "forest_benchmarking_tpu"]))
+"""
+
+
+def test_notebook_runner_and_entry_import_no_jax():
+    """Running a notebook through the runner (without matplotlib, as on
+    the card's machine) and importing ``entry`` load no ``jax`` and no
+    module of the JAX package."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", _NOTEBOOK_AND_ENTRY],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
