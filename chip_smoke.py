@@ -8,7 +8,8 @@ tomography protocol end to end on the port's QVM (``do_tomography``), the
 Clifford-engine protocols, and quantum volume from circuits (config 5),
 entangled states, the ripple-carry adder and the sharded entry points, the
 example scripts and notebooks of ``examples_torch/``, and the entry step
-with its dry run over a four-shard mesh.
+with its dry run over a four-shard mesh, and the measurement harnesses
+``bench`` and ``bench_all``.
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
@@ -196,7 +197,10 @@ Phases, each of which must pass:
    it. The diamond norm at B = 2048 through ``diamond_norm_distance``
    (``method="auto"``), float32: it must take the fused route
    (``ops/lanes_dnorm.dnorm_planes``, one call) and launch no hand kernel;
-   CUDA events, dnorms/s, the host clock, a profiler pass, the mean diamond
+   CUDA events, dnorms/s, the host clock, the launches, busy time and
+   synchronizations of the call (profiled at 1 and 9 of its fixed Adam
+   steps, the difference scaled to its 96: a profile of the whole call's
+   ~236 k launches took most of the phase), the mean diamond
    norm, ``dnorm_flops_per_problem`` with the bound and its share; the
    dense route (``method="dense"``) at the same B with its Adam steps, for
    comparison. The first 64 pairs' fused values within 1e-5 of a float64
@@ -348,12 +352,29 @@ Phases, each of which must pass:
    sharded APG solve and the sharded ideal QV bitwise equal to the
    unsharded and per-shard runs), and the APG, trajectory and ideal
    kernels' counters must move.
+23. the measurement harnesses at the JAX package's sizes, with the launch
+   counters zeroed before and read after: ``bench.main()`` (config 2 at
+   B = 16384: both fused schedules, the sustained figure, the comparison
+   routes, the f64 parity half on the CPU) and ``bench_all.main()`` (its
+   eight sections, lines also in ``chiprun_out/bench_all.jsonl``). Every
+   line they print is printed again and must parse; no ``errors`` or
+   ``error`` key and no null figure; mean relative Frobenius errors under
+   0.12, ``fused_parity_dev_f64`` under 1e-6, ``headline_llr_statistic_f64``
+   under 4, ``max_deviation_vs_oracle_f64`` at most 2.2e-15 x 10
+   (``ORACLE_BAR``); config 1 mean MLE fidelity >= 0.99, config 3 mean
+   |decay error| <= 0.02, QV heavy-output probability in [0.83, 0.87]
+   ideal and [0.60, 0.72] noisy at depth 8 (both trajectory counts),
+   config 4's diamond norms by the fused route; the APG, trajectory and
+   ideal kernels must launch. The harness's throughputs are printed beside
+   the earlier phases' figures for the same work (phases 5, 7, 14-16); a
+   gap over 1.5x is printed as a finding, not a failure. Budget: 150 s.
 
 Before it, one JSON line ``{"tomography": ...}`` holds phase 17's figures,
 one ``{"protocols": ...}`` phase 18's, one ``{"slice13": ...}`` phase
 19's, one ``{"examples": {name: {"s": ..., "launches": {...}}}}`` phase
 20's, one ``{"notebooks": {name: {"s": ..., "launches": {...}}}}`` phase
-21's and one ``{"entry": ...}`` phase 22's.
+21's, one ``{"entry": ...}`` phase 22's and one ``{"harness": ...}`` phase
+23's (seconds, launches, clock gaps).
 The second-to-last line is the per-kernel JSON record: ``launches`` from
 the main paths; ``ms``/``plain_ms``: the kernel alone and the plain version
 at the main path's size (APG: headline schedule); ``bound_ms``: the larger
@@ -376,6 +397,7 @@ printing no result, if CUDA is unavailable or any phase fails.
 """
 import contextlib
 import functools
+import inspect
 import io
 import itertools
 import json
@@ -383,12 +405,13 @@ import math
 import pathlib
 import re
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from forest_benchmarking_tpu_torch.bench import bound_ms, card as smi_card
 
 SEED = 2024
 BATCH = 16384
@@ -440,14 +463,13 @@ DIST_BATCH = 1024      # config 4 (bench_all.py:176): channel pairs
 DNORM_BATCH = 2048     # config 4: diamond norms
 GOLD_PAIRS = 64        # pairs held against the f64 dense gold
 DNORM_BAR = 1e-5       # the JAX package's on-chip bar (bench_all.py:182)
+PROFILE_STEPS = (1, 9)  # Adam steps of phase 16's two fused-dnorm profiles
 TOMO_DEPOL = 0.02        # two-qubit depolarizing probability on CZ
 TOMO_READOUT = (0.98, 0.95)   # p(0|0), p(1|1): 2% 0->1, 5% 1->0
 PROB_BAR = 1e-12         # card against CPU probabilities, complex128
 PROCESS_FID_BAR = 0.85   # CPU: JAX 0.925-0.968 (8 seeds), port 0.893-0.971
 STATE_FID_BAR = (0.95, 1.05)  # CPU: JAX 0.990-1.018, port 0.985-1.022
 FUSED_PGDB_BAR = 1e-2    # relative Frobenius, fused against PGDB
-PEAK_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
-PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # the dim = 4 kernel with one problem per block, B = 16384, headline /
 # parity schedule (PERF.md, NVIDIA H100 80GB HBM3 at 700 W)
 ONE_PER_BLOCK_MS = (64.658, 584.640)
@@ -605,13 +627,6 @@ def plain_1q(lanes_apg, in_1q, n, dtype):
     rho0 = lanes_apg.linear_inversion_start(inp.a_pinv, n.to(dtype), 2)
     return torch.complex(*lanes_apg.apg_fused_reference(
         inp.ar, inp.ai, n.to(dtype), *rho0, dim=2))
-
-
-def bound_ms(flops: float, n_bytes: float):
-    """(least time in ms, what bounds it) at the card's published peaks."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, n_bytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
 
 
 def nbytes(*tensors) -> int:
@@ -773,9 +788,9 @@ def port_launches():
             pallas_traj.ideal_probs, pallas_traj.traj_probs)
 
 
-def phase_state_tomography(card: str, dev: torch.device) -> None:
+def phase_state_tomography(card: str, dev: torch.device) -> float:
     """14. BASELINE config 1 at bench_all.py:57's size; see the module
-    docstring."""
+    docstring. Returns the f32 call's CUDA-event milliseconds."""
     t_phase = time.perf_counter()
     from forest_benchmarking_tpu_torch import tomography
     from forest_benchmarking_tpu_torch.utils import pauli_basis_matrices
@@ -834,9 +849,11 @@ def phase_state_tomography(card: str, dev: torch.device) -> None:
     check(sum(hand) == 0, f"state tomography launched hand kernels {hand}")
     steps = tomography._mle_bloch_kernel(e, 0.1, MLE_TOL, MLE_MAXITER,
                                          True)[1]
+    ms_by = {}
     for name, ee, rt in (("f32", e, r_true),
                          ("f64", e.double(), r_true.double())):
         ms, _ = cuda_ms(lambda: estimate(ee, rt))
+        ms_by[name] = ms
         host = host_ms(lambda: estimate(ee, rt))
         flops = (tomography.mle_bloch_flops_per_solve(steps)
                  + 2 * 3 * 2) * STATE_BATCH
@@ -898,11 +915,12 @@ def phase_state_tomography(card: str, dev: torch.device) -> None:
     check(gap.item() <= 1e-4, f"general route: f32 mean fidelity "
           f"{gap.item():.3e} from f64")
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return ms_by["f32"]
 
 
-def phase_rb_fits(card: str, dev: torch.device) -> None:
+def phase_rb_fits(card: str, dev: torch.device) -> float:
     """15. BASELINE config 3 at bench_all.py:131's size; see the module
-    docstring."""
+    docstring. Returns the f32 fit's CUDA-event milliseconds."""
     t_phase = time.perf_counter()
     from scipy.optimize import curve_fit
     from forest_benchmarking_tpu_torch import randomized_benchmarking as rb
@@ -950,8 +968,10 @@ def phase_rb_fits(card: str, dev: torch.device) -> None:
     check(err32.mean().item() <= 0.02, f"RB fits: mean |decay error| "
           f"{err32.mean().item()}")
     check(sum(hand) == 0, f"RB fits launched hand kernels {hand}")
+    ms_by = {}
     for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
         ms, _ = cuda_ms(lambda: fit(dtype))
+        ms_by[name] = ms
         host = host_ms(lambda: fit(dtype), reps=1)
         flops = fitting.lm_flops_per_fit(RB_DEPTHS, 3, RB_ITERS) * RB_BATCH
         size = torch.empty((), dtype=dtype).element_size()
@@ -1051,11 +1071,13 @@ def phase_rb_fits(card: str, dev: torch.device) -> None:
           f"RB simulator: {dev_ideal:.3e} / {dev_exact:.3e}")
     check(abs(decay - 0.9) < 0.02, f"RB simulator: decay {decay}")
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return ms_by["f32"]
 
 
-def phase_distances(card: str, dev: torch.device) -> None:
+def phase_distances(card: str, dev: torch.device) -> dict:
     """16. BASELINE config 4 at bench_all.py:176's size; see the module
-    docstring."""
+    docstring. Returns the CUDA-event milliseconds of the f32 distance step
+    (``"distance_ms"``) and of the fused diamond norm (``"dnorm_ms"``)."""
     t_phase = time.perf_counter()
     from forest_benchmarking_tpu_torch import distance_measures as dm
     from forest_benchmarking_tpu_torch.ops import lanes_dnorm
@@ -1111,8 +1133,10 @@ def phase_distances(card: str, dev: torch.device) -> None:
           "want 1 (method auto on the card)")
     check(sum(hand) == 0, f"config 4 launched hand kernels {hand}")
 
+    ms_by = {}
     for name, pair in (("f32", dist32), ("f64", dist64)):
         ms, _ = cuda_ms(lambda: step(*pair))
+        ms_by[name] = ms
         host = host_ms(lambda: step(*pair))
         launches, busy, syncs, top, _ = profiled(lambda: step(*pair))
         print(f"timing distance step {name}: B={DIST_BATCH} CUDA events "
@@ -1127,16 +1151,30 @@ def phase_distances(card: str, dev: torch.device) -> None:
 
     ms_f, _ = cuda_ms(lambda: dm.diamond_norm_distance(*dnorm32))
     host_f = host_ms(lambda: dm.diamond_norm_distance(*dnorm32), reps=1)
-    launches, busy, syncs, top, _ = profiled(
-        lambda: dm.diamond_norm_distance(*dnorm32))
+    # a profile of the whole call gathers ~236 k launches and took most of
+    # the phase; the schedule is fixed, so profile it at PROFILE_STEPS Adam
+    # steps and scale the difference (the steps' share) to the call's
+    steps_f = inspect.signature(dm.diamond_norm_distance).parameters[
+        "fused_iters"].default
+    (l_lo, b_lo, s_lo, _, _), (l_hi, b_hi, s_hi, top, _) = (
+        profiled(lambda: dm.diamond_norm_distance(*dnorm32, fused_iters=k))
+        for k in PROFILE_STEPS)
+    scale = (steps_f - PROFILE_STEPS[0]) / (PROFILE_STEPS[1]
+                                            - PROFILE_STEPS[0])
+    launches = round(l_lo + scale * (l_hi - l_lo))
+    busy = b_lo + scale * (b_hi - b_lo)
+    syncs = round(s_lo + scale * (s_hi - s_lo))
     flops = lanes_dnorm.dnorm_flops_per_problem(4)
     bound = bound_ms(DNORM_BATCH * flops, nbytes(*dnorm32)
                      + DNORM_BATCH * dn32.element_size())
     print(f"timing diamond norm fused f32: B={DNORM_BATCH} CUDA events "
           f"{ms_f:.3f} ms, {DNORM_BATCH / (ms_f / 1e3):.0f} dnorms/s, host "
-          f"clock {host_f:.3f} ms; profiled: {launches} device launches, "
-          f"busy {busy:.3f} ms ({100 * busy / ms_f:.1f}% of the call), "
-          f"{syncs} synchronizations; dnorm_flops_per_problem(4) = "
+          f"clock {host_f:.3f} ms; profiled at {PROFILE_STEPS[0]} and "
+          f"{PROFILE_STEPS[1]} Adam steps ({l_lo} / {l_hi} device launches, "
+          f"busy {b_lo:.3f} / {b_hi:.3f} ms, {s_lo} / {s_hi} "
+          f"synchronizations), scaled to {steps_f}: {launches} device "
+          f"launches, busy {busy:.3f} ms ({100 * busy / ms_f:.1f}% of the "
+          f"call), {syncs} synchronizations; dnorm_flops_per_problem(4) = "
           f"{flops:.0f}; bound {bound[0]:.4f} ms ({bound[1]}), "
           f"{100 * bound[0] / ms_f:.4f}% of it on {card}")
     print_top(top)
@@ -1187,6 +1225,7 @@ def phase_distances(card: str, dev: torch.device) -> None:
     check(bool(torch.isfinite(self1).all() and torch.isfinite(self2).all())
           and self_max <= DNORM_BAR, f"diamond norm self-distance {self_max}")
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return {"distance_ms": ms_by["f32"], "dnorm_ms": ms_f}
 
 
 def noisy_cz(circuits, noise, pair):
@@ -3124,6 +3163,121 @@ def phase_entry(card: str, dev: torch.device) -> dict:
     return record
 
 
+HARNESS_OUT = "chiprun_out/bench_all.jsonl"
+HARNESS_BUDGET_S = 150
+LLR_BAR = 4.0                # headline likelihood-ratio statistic (bench.py)
+PARITY_DEV_BAR = 1e-6        # fused parity against the tight optimum, f64
+# PGDB against the numpy oracle: the JAX receipt's 2.2e-15 times 10. The
+# two sum in different orders (MKL and numpy's eigh and products), so the
+# gap is round-off of a few ulps of the estimate, 3.6e-15 on a CPU of the
+# port's test machine; 10 keeps it at round-off on another CPU's library
+ORACLE_BAR = 2.2e-15 * 10
+CLOCK_GAP = 1.5              # harness against phase figures: a finding
+# bars of PERF.md section 2, by bench_all line: (key, low, high)
+SECTION_BARS = {
+    "config1": (("mean_fidelity_mle", 0.99, 1.0),),
+    "config3": (("mean_decay_error", 0.0, 0.02),),
+    "config5_ideal": (("heavy_output_prob", 0.83, 0.87),),
+    "config5_noisy_d8": (("heavy_output_prob", 0.60, 0.72),),
+    "config5_noisy_d8_t500": (("heavy_output_prob", 0.60, 0.72),),
+}
+
+
+def run_printing(fn, *args):
+    """(fn's return, the JSON objects of every line it printed): each line
+    is printed again here, prefixed, and must parse."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    parsed = []
+    for line in buf.getvalue().splitlines():
+        print(f"harness: {line}")
+        try:
+            parsed.append(json.loads(line))
+        except json.JSONDecodeError:
+            raise SmokeFailure(f"harness printed a line that is not JSON: "
+                               f"{line[:200]}") from None
+    return out, parsed
+
+
+def phase_harness(card: str, dev: torch.device, phase_figures: dict) -> dict:
+    """23. ``bench.main()`` and ``bench_all.main()`` at the JAX sizes on the
+    card; see the module docstring. ``phase_figures`` maps (line, key) to
+    (the same figure per millisecond from an earlier phase, how it was
+    taken)."""
+    t_phase = time.perf_counter()
+    from forest_benchmarking_tpu_torch import bench, bench_all
+    counters = port_launches()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    _, printed = run_printing(bench.main)
+    bench_s = time.perf_counter() - t0
+    check(len(printed) == 1, f"bench printed {len(printed)} lines, want 1")
+    line = printed[0]
+    t0 = time.perf_counter()
+    _, lines = run_printing(bench_all.main, [HARNESS_OUT])
+    torch.cuda.synchronize()
+    all_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"harness: bench {bench_s:.1f} s, bench_all {all_s:.1f} s (lines "
+          f"in {HARNESS_OUT}); kernel launches {launches} on {card}")
+
+    sections = [name for name, _ in bench_all.sections()]
+    check(len(lines) == len(sections),
+          f"bench_all printed {len(lines)} lines, want {len(sections)}")
+    by_name = dict(zip(sections, lines))
+    check("errors" not in line, f"bench: errors {line.get('errors')}")
+    nulls = [k for k, v in line.items() if v is None]
+    check(not nulls, f"bench: null figures {nulls}")
+    check(line["device"] == card, f"bench: device {line['device']!r}")
+    for name, x in by_name.items():
+        check("error" not in x and "errors" not in x,
+              f"bench_all {name}: {x.get('error') or x.get('errors')}")
+        nulls = [k for k, v in x.items() if v is None and not (
+            k == "vs_baseline" and name != "config2")]
+        check(not nulls, f"bench_all {name}: null figures {nulls}")
+    for key in ("mean_rel_frob_err_f32", "mean_rel_frob_err_parity_f32"):
+        check(line[key] < 0.12, f"bench: {key} {line[key]}")
+    check(line["fused_parity_dev_f64"] < PARITY_DEV_BAR,
+          f"bench: fused_parity_dev_f64 {line['fused_parity_dev_f64']}")
+    check(line["headline_llr_statistic_f64"] < LLR_BAR,
+          f"bench: headline LLR {line['headline_llr_statistic_f64']}")
+    check(line["max_deviation_vs_oracle_f64"] <= ORACLE_BAR,
+          f"bench: PGDB {line['max_deviation_vs_oracle_f64']} from the "
+          f"numpy oracle, bar {ORACLE_BAR:.1e}")
+    for name, bars in SECTION_BARS.items():
+        for key, lo, hi in bars:
+            check(lo <= by_name[name][key] <= hi,
+                  f"bench_all {name}: {key} {by_name[name][key]} outside "
+                  f"[{lo}, {hi}]")
+    check(by_name["config4"]["dnorm_method"] == "fused",
+          f"bench_all config4: dnorm_method "
+          f"{by_name['config4']['dnorm_method']}")
+    for name in ("apg_fused", "traj_probs", "ideal_probs"):
+        check(launches[name] > 0, f"harness: {name} did not launch")
+
+    # the two clocks: the harness's figure against the earlier phases' for
+    # the same work
+    found = []
+    for (where, key), (per_ms, how) in phase_figures.items():
+        ours = (line if where == "bench" else by_name[where])[key]
+        theirs = 1e3 * per_ms
+        ratio = ours / theirs
+        print(f"harness {where} {key}: {ours:.2f} against {theirs:.2f} "
+              f"({how}): {ratio:.3f}x")
+        if max(ratio, 1 / ratio) > CLOCK_GAP:
+            found.append(f"{where} {key} {ratio:.3f}x")
+    print("finding: harness and phase clocks differ by more than "
+          f"{CLOCK_GAP}x: {found}" if found else
+          f"harness and phase clocks agree within {CLOCK_GAP}x")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 23: {phase_s:.1f} s (budget {HARNESS_BUDGET_S} s)")
+    return {"bench_s": bench_s, "bench_all_s": all_s, "launches": launches,
+            "clock_gaps": found, "phase_s": phase_s}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3145,10 +3299,7 @@ def main() -> int:
                "parity": lanes_apg.PARITY_TUNED_2Q}
 
     # 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip()
+    card = smi_card()
     kind = torch.cuda.get_device_name(0)
     print(card)
     print(f"torch device: {kind}; torch {torch.__version__}, "
@@ -3217,9 +3368,9 @@ def main() -> int:
         check(tp < 1e-5, f"{name}: TP violation {tp:.3e}")
 
     # 5. timing at full size, and the kernel against plain version there
-    ms_w, rho0 = cuda_ms(
+    ms_warm, rho0 = cuda_ms(
         lambda: lanes_apg.linear_inversion_start(in32.a_pinv, n, 4))
-    print(f"timing warm start: B={BATCH} {ms_w:.3f} ms on {card}")
+    print(f"timing warm start: B={BATCH} {ms_warm:.3f} ms on {card}")
     timing, max_abs_err = {}, 0.0
     for name, ms_one in zip(SCHEDULES, ONE_PER_BLOCK_MS):
         cfg = configs[name]
@@ -3356,15 +3507,18 @@ def main() -> int:
               f"warp- or block-mates")
 
     # 7. the quantum-volume main path at full width
-    def heavy_path(seed, noisy):
+    def heavy_call(seed, noisy):
         kw = (dict(kraus=kraus, noisy_method="trajectory",
                    num_trajectories=QV_TRAJ) if noisy else {})
+        return quantum_volume.sample_heavy_outputs_batched(
+            torch.Generator(device=dev).manual_seed(seed), QV_DEPTH,
+            QV_CIRCUITS, QV_SHOTS, device="cuda", **kw)
+
+    def heavy_path(seed, noisy):
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        counts = quantum_volume.sample_heavy_outputs_batched(
-            torch.Generator(device=dev).manual_seed(seed), QV_DEPTH,
-            QV_CIRCUITS, QV_SHOTS, device="cuda", **kw)
+        counts = heavy_call(seed, noisy)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
         check(counts.shape == (QV_CIRCUITS,) and bool(
@@ -3401,6 +3555,13 @@ def main() -> int:
               f"{abs(prob - prob_p) / sigma:.2f} sigma")
         qv_launches["ideal_probs"] = qv_launches.get("ideal_probs", 0) + moved[0]
         qv_launches["traj_probs"] = qv_launches.get("traj_probs", 0) + moved[1]
+    # the same calls warm, by CUDA events with the counts fetched (the
+    # clock phase 23 holds the harness's config-5 figures against)
+    qv_warm_ms = {name: cuda_ms(lambda: heavy_call(SEED + 1, noisy).cpu())[0]
+                  for name, noisy in (("ideal", False), ("noisy", True))}
+    print(f"main path QV warm: ideal {qv_warm_ms['ideal']:.3f} ms, noisy "
+          f"{qv_warm_ms['noisy']:.3f} ms (CUDA events, median of 3 after a "
+          f"warm-up) on {card}")
 
     # 8. timing at full width, and the kernels against plain versions there
     perms, gates, uni = qv_inputs(quantum_volume, haar_rand_unitary, gen,
@@ -3789,11 +3950,11 @@ def main() -> int:
 
     # 14. BASELINE config 1, and 15. config 3 (plain torch: these paths
     # run no TPU kernel)
-    phase_state_tomography(card, dev)
-    phase_rb_fits(card, dev)
+    ms_state = phase_state_tomography(card, dev)
+    ms_rb = phase_rb_fits(card, dev)
 
     # 16. BASELINE config 4 (plain torch: no TPU kernel on this path)
-    phase_distances(card, dev)
+    ms_dist = phase_distances(card, dev)
 
     # 17. the tomography protocol on the card (the fused kernel on data
     # from circuits in its part (c))
@@ -3819,6 +3980,27 @@ def main() -> int:
     # trajectory and ideal kernels)
     entry_record = phase_entry(card, dev)
 
+    # 23. the measurement harnesses at the JAX sizes (the APG, ideal and
+    # trajectory kernels), beside the earlier phases' figures for the same
+    # work
+    events = "CUDA events"
+    harness_record = phase_harness(card, dev, {
+        ("bench", "value"): (BATCH / (ms_warm + timing["headline"][0]),
+                             "phase 5, warm start + kernel, " + events),
+        ("bench", "parity_solves_per_sec"): (
+            BATCH / (ms_warm + timing["parity"][0]),
+            "phase 5, warm start + kernel, " + events),
+        ("config1", "value"): (STATE_BATCH / ms_state, "phase 14, " + events),
+        ("config3", "value"): (RB_BATCH / ms_rb, "phase 15, " + events),
+        ("config4", "value"): (DIST_BATCH / ms_dist["distance_ms"],
+                               "phase 16, " + events),
+        ("config4", "diamond_norms_per_sec"): (
+            DNORM_BATCH / ms_dist["dnorm_ms"], "phase 16, " + events),
+        ("config5_ideal", "value"): (QV_CIRCUITS / qv_warm_ms["ideal"],
+                                     "phase 7, warm, " + events),
+        ("config5_noisy_d8", "value"): (QV_CIRCUITS / qv_warm_ms["noisy"],
+                                        "phase 7, warm, " + events)})
+
     def record(name, source, replaces, launch_count, err, ms_k, ms_p, bound,
                library_ms=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -3839,6 +4021,7 @@ def main() -> int:
         k: {"s": v["s"], "launches": v["launches"]}
         for k, v in notebooks_record.items() if k != "phase_s"}}))
     print(json.dumps({"entry": entry_record}, default=float))
+    print(json.dumps({"harness": harness_record}))
     print(json.dumps({"kernels": [
         record("apg_fused", apg_src,
                "forest_benchmarking_tpu/ops/lanes_apg.py:674", launches,

@@ -160,7 +160,7 @@ def _concat(outs, device: torch.device):
 
 def shard_map_batched(fn, mesh: Mesh, batched_argnums: Sequence[int] = (0,),
                       fold_key_argnums: Sequence[int] = (),
-                      axis_name: str = BATCH_AXIS):
+                      axis_name: str = BATCH_AXIS, check_vma: bool = False):
     """Map a per-device kernel over a 1-D batch mesh.
 
     The generalization behind every sharded entry point
@@ -177,7 +177,13 @@ def shard_map_batched(fn, mesh: Mesh, batched_argnums: Sequence[int] = (0,),
     on its device with ``fold_in(generator, shard)`` and concatenating.
     Inputs already placed by :func:`shard_batch` or :func:`replicate` are
     taken as they are.
+
+    ``check_vma`` is accepted at the JAX signature's position and does
+    nothing: it switches JAX's varying-manual-axes checker inside
+    ``shard_map``, and this one-process map has no such checker, so the
+    mapped function is the same for either value.
     """
+    del check_vma
     batched = frozenset(batched_argnums)
     folded = frozenset(fold_key_argnums)
 

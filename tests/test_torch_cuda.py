@@ -1008,3 +1008,22 @@ def test_qv_takes_a_card_generator_made_without_an_index(cuda):
         num_circuits=16, num_shots=50, device=d)
         for d in ("cuda", cuda)]
     assert runs[0] == runs[1]
+
+
+def test_bench_throughput_on_the_card(cuda):
+    """The config-2 harness at B = 1024 on the card: both fused figures
+    measured, no stage failed, and the quality bars of ``chip_smoke.py``
+    phase 23 (mean relative Frobenius error < 0.12 for both schedules)."""
+    from forest_benchmarking_tpu_torch import bench
+    errors = {}
+    before = lanes_apg.apg_fused.launches
+    perf = bench.throughput(errors, comparisons=False, batch=1024)
+    assert errors == {}
+    assert lanes_apg.apg_fused.launches > before
+    assert perf["batch"] == 1024
+    for key in ("solves_per_sec", "sustained_solves_per_sec",
+                "parity_solves_per_sec", "parity_achieved_gflops"):
+        assert perf[key] > 0, key
+    assert perf["mean_rel_frob_err"] < 0.12
+    assert perf["mean_rel_frob_err_parity"] < 0.12
+    assert 0 < perf["parity_fraction_f32_peak"] < 1

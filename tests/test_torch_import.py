@@ -37,6 +37,9 @@ print(json.dumps({
     "jax_package": [m for m in sys.modules if m == "forest_benchmarking_tpu"
                     or m.startswith("forest_benchmarking_tpu.")],
     "triton": "triton" in sys.modules,
+    "tests": [m for m, mod in sys.modules.items()
+              if os.path.abspath(getattr(mod, "__file__", None) or "")
+              .startswith(os.path.join(os.getcwd(), "tests") + os.sep)],
     "optional": [m for m in ("networkx", "pandas", "tqdm", "matplotlib")
                  if any(n == m or n.startswith(m + ".") for n in new)],
     "cpp_extension": "torch.utils.cpp_extension" in sys.modules,
@@ -73,10 +76,12 @@ def test_port_imports_without_jax_package_or_toolchain():
                  "classical_logic.primitives",
                  "classical_logic.ripple_carry_adder", "parallel",
                  "parallel.sharding", "plotting", "plotting.hinton",
-                 "plotting.state_process", "_vf2", "entry"):
+                 "plotting.state_process", "_vf2", "entry", "bench",
+                 "bench_all", "tools", "tools.parity_sweep"):
         assert f"forest_benchmarking_tpu_torch.{name}" in info["names"]
     assert info["jax"] == []
     assert info["jax_package"] == []
+    assert info["tests"] == []
     assert not info["triton"]
     assert info["optional"] == []
     assert not info["cpp_extension"]

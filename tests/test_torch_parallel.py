@@ -204,3 +204,27 @@ def test_shard_map_batched_trees_and_outputs(mesh):
         x, (x, 2 * x), torch.tensor(3.0))
     assert seen == [1] * 8
     assert torch.equal(out, 3 * x) and torch.equal(d["sum"], 3 * x)
+
+
+@pytest.mark.parametrize("check_vma", [False, True])
+def test_shard_map_batched_takes_jaxs_check_vma(check_vma):
+    """JAX's ``check_vma`` keyword (and its position) is accepted and
+    changes nothing: on a 2-entry CPU mesh the mapped function equals the
+    one made without it, as ``jax.shard_map`` returns a mapped function
+    for either value."""
+    mesh2 = make_mesh([CPU] * 2)
+
+    def fn(x, scale):
+        return x * scale + x.sum()
+
+    x = torch.arange(6.0, dtype=torch.float64)
+    scale = torch.tensor(2.0, dtype=torch.float64)
+    plain = shard_map_batched(fn, mesh2)(x, scale)
+    by_name = shard_map_batched(fn, mesh2, check_vma=check_vma)(x, scale)
+    by_position = shard_map_batched(fn, mesh2, (0,), (), "batch",
+                                    check_vma)(x, scale)
+    jax_mapped = jpar.shard_map_batched(lambda v: v, jpar.make_mesh(
+        jax.devices("cpu")[:1]), check_vma=check_vma)
+    assert callable(jax_mapped)
+    assert torch.equal(by_name, plain) and torch.equal(by_position, plain)
+    assert torch.equal(plain, torch.cat([fn(s, scale) for s in x.chunk(2)]))
