@@ -1,0 +1,9 @@
+"""``device_idle_pct.ideal``: the share of the traced stretch of the ideal quantum-volume
+cells, from the first call's start to the last call's end, in which no
+operation (kernel, copy, set) ran on the card, from the profiler's device
+timeline. One metric for each end-to-end metric that it moves
+(``ideal_circuits_per_s``)."""
+
+
+def read(trace, sut):
+    return trace.idle_pct()

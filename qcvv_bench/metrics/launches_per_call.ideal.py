@@ -1,0 +1,8 @@
+"""``launches_per_call.ideal``: device operations (kernels, copies, sets)
+that the profiler recorded in the traced stretch of the ideal quantum-volume
+cells, over its calls: the host's dispatch work a call. One metric for
+each end-to-end metric that it moves (``ideal_circuits_per_s``)."""
+
+
+def read(trace, sut):
+    return trace.launches_per_call()
