@@ -29,7 +29,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from forest_benchmarking_tpu_torch import kernels
+from forest_benchmarking_tpu_torch import kernels, tracing
+from forest_benchmarking_tpu_torch.tracing import span
 
 __all__ = [
     "raster_a_matrix", "linear_inversion_start", "apg_fused_reference",
@@ -580,24 +581,32 @@ def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,
     if n_counts.device != a.device:
         raise ValueError(f"counts on {n_counts.device} but A on {a.device}")
     d2 = dim * dim
-    a_rast = raster_a_matrix(a, d2)
-    ar = a_rast.real.contiguous()
-    ai = a_rast.imag.contiguous()
-    if a_pinv is None:
-        a_pinv = torch.linalg.pinv(a)
-    rho0_r, rho0_i = linear_inversion_start(a_pinv, n_counts, dim)
-    n_mat = n_counts.to(ar.dtype).contiguous()
     kw = dict(dim=dim, phases=phases, init_iters=init_iters,
               init_sweeps=init_sweeps, final_iters=final_iters,
               final_sweeps=final_sweeps, final_sweeps_rest=final_sweeps_rest,
               mu=mu)
-    if a.is_cuda and use_pallas:
-        est_r, est_i = apg_fused_kernel(ar, ai, n_mat, rho0_r, rho0_i, **kw)
-    elif a.is_cuda or a.device.type == "cpu":
-        est_r, est_i = apg_fused_reference(ar, ai, n_mat, rho0_r, rho0_i, **kw)
-    else:
-        raise ValueError(f"unsupported device {a.device}")
-    return torch.complex(est_r, est_i).to(a.dtype)
+    with span(tracing.APG_FUSED):
+        with span(tracing.APG_RASTER):
+            a_rast = raster_a_matrix(a, d2)
+            ar = a_rast.real.contiguous()
+            ai = a_rast.imag.contiguous()
+        with span(tracing.APG_PINV):
+            if a_pinv is None:
+                a_pinv = torch.linalg.pinv(a)
+        with span(tracing.APG_WARM_START):
+            rho0_r, rho0_i = linear_inversion_start(a_pinv, n_counts, dim)
+        with span(tracing.APG_KERNEL):
+            n_mat = n_counts.to(ar.dtype).contiguous()
+            if a.is_cuda and use_pallas:
+                est_r, est_i = apg_fused_kernel(ar, ai, n_mat, rho0_r, rho0_i,
+                                                **kw)
+            elif a.is_cuda or a.device.type == "cpu":
+                est_r, est_i = apg_fused_reference(ar, ai, n_mat, rho0_r,
+                                                   rho0_i, **kw)
+            else:
+                raise ValueError(f"unsupported device {a.device}")
+        with span(tracing.APG_ASSEMBLE):
+            return torch.complex(est_r, est_i).to(a.dtype)
 
 
 apg_fused.launches = 0

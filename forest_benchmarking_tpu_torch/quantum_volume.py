@@ -48,12 +48,14 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from forest_benchmarking_tpu_torch import tracing
 from forest_benchmarking_tpu_torch.circuits import Circuit, Gate
 from forest_benchmarking_tpu_torch.ops import pallas_traj
 from forest_benchmarking_tpu_torch.ops.pallas_traj import _bit_permute_indices
 from forest_benchmarking_tpu_torch.ops.lanes_apg import full_f32_matmul
 from forest_benchmarking_tpu_torch.ops.random_operators import (
     haar_rand_unitary)
+from forest_benchmarking_tpu_torch.tracing import span
 from forest_benchmarking_tpu_torch.utils import (
     bit_array_to_int, entry_device, progress_iter)
 
@@ -461,43 +463,56 @@ def sample_heavy_outputs_batched(generator: Optional[torch.Generator],
         trajectories = pallas_traj.traj_probs_reference
         kdtype = dtype
     kcdtype = torch.complex64 if kdtype == torch.float32 else torch.complex128
-    perms = _sample_perms(gen, num_circuits, depth)
-    gates = haar_rand_unitary(gen, 4, batch=(num_circuits, depth, depth // 2),
-                              dtype=dtype)
-    probs = ideal(perms, gates.to(kcdtype), depth).to(dtype)
-    heavy = _heavy_outputs(probs)
+    with span(tracing.QV_SAMPLE_HEAVY):
+        with span(tracing.QV_DRAWS):
+            perms = _sample_perms(gen, num_circuits, depth)
+            gates = haar_rand_unitary(gen, 4,
+                                      batch=(num_circuits, depth, depth // 2),
+                                      dtype=dtype)
+        with span(tracing.QV_IDEAL):
+            probs = ideal(perms, gates.to(kcdtype), depth).to(dtype)
+        with span(tracing.QV_HEAVY_SETS):
+            heavy = _heavy_outputs(probs)
 
-    if kraus is not None:
-        kraus = torch.as_tensor(kraus).to(device=dev, dtype=cdtype)
-        if _noisy_method(depth, noisy_method) == "trajectory":
-            t = num_shots if num_trajectories is None else num_trajectories
-            if num_shots % t != 0:
-                raise ValueError(f"num_trajectories ({t}) must divide "
-                                 f"num_shots ({num_shots})")
-            uniforms = torch.rand((num_circuits, depth, depth // 2, t),
-                                  generator=gen, device=dev, dtype=kdtype)
-            traj = trajectories(perms, gates.to(kcdtype), kraus.to(kcdtype),
-                                uniforms, depth).to(dtype)
-            # (C, 2^d, T) -> num_shots / T shots from each trajectory
-            rows = traj.transpose(1, 2).reshape(num_circuits * t, -1)
-            samples = torch.multinomial(rows, num_shots // t, replacement=True,
+        if kraus is not None:
+            kraus = torch.as_tensor(kraus).to(device=dev, dtype=cdtype)
+            if _noisy_method(depth, noisy_method) == "trajectory":
+                t = num_shots if num_trajectories is None else num_trajectories
+                if num_shots % t != 0:
+                    raise ValueError(f"num_trajectories ({t}) must divide "
+                                     f"num_shots ({num_shots})")
+                with span(tracing.QV_TRAJECTORIES):
+                    uniforms = torch.rand(
+                        (num_circuits, depth, depth // 2, t), generator=gen,
+                        device=dev, dtype=kdtype)
+                    traj = trajectories(perms, gates.to(kcdtype),
+                                        kraus.to(kcdtype), uniforms,
+                                        depth).to(dtype)
+                with span(tracing.QV_SHOTS):
+                    # (C, 2^d, T) -> num_shots / T shots from each trajectory
+                    rows = traj.transpose(1, 2).reshape(num_circuits * t, -1)
+                    samples = torch.multinomial(rows, num_shots // t,
+                                                replacement=True,
+                                                generator=gen)
+                    return torch.gather(
+                        heavy, 1,
+                        samples.reshape(num_circuits, num_shots)).sum(1)
+            with full_f32_matmul():
+                if depth >= 6:
+                    lifts = tuple(_lift_2q(kraus, j, depth)
+                                  for j in range(depth // 2))
+                    sim = functools.partial(
+                        _simulate_qv_circuit_density_lifted,
+                        kraus_lifts=lifts, depth=depth)
+                else:
+                    sim = functools.partial(_simulate_qv_circuit_density,
+                                            kraus=kraus, depth=depth)
+                probs = torch.func.vmap(sim)(perms, gates)
+
+        with span(tracing.QV_SHOTS):
+            samples = torch.multinomial(probs, num_shots, replacement=True,
                                         generator=gen)
-            return torch.gather(heavy, 1,
-                                samples.reshape(num_circuits, num_shots)).sum(1)
-        with full_f32_matmul():
-            if depth >= 6:
-                lifts = tuple(_lift_2q(kraus, j, depth)
-                              for j in range(depth // 2))
-                sim = functools.partial(_simulate_qv_circuit_density_lifted,
-                                        kraus_lifts=lifts, depth=depth)
-            else:
-                sim = functools.partial(_simulate_qv_circuit_density,
-                                        kraus=kraus, depth=depth)
-            probs = torch.func.vmap(sim)(perms, gates)
-
-    samples = torch.multinomial(probs, num_shots, replacement=True,
-                                generator=gen)
-    return torch.gather(heavy, 1, samples).sum(1)
+            return torch.gather(heavy, 1, samples).sum(1)
 
 
 def sample_heavy_outputs_sharded(generator: torch.Generator, mesh,
