@@ -22,9 +22,12 @@ package's lanes layout (batch last) and runs the same two.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import functools
+import threading
+import weakref
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -550,6 +553,64 @@ def _a_passes(phases) -> int:
     return 1 + 3 * sum(p[0] for p in phases)
 
 
+PINV_CACHE_SIZE = 4   # A-matrices whose pinv apg_fused keeps
+
+# id(A) -> (weak reference to A, _pinv_key(A), pinv(A)), least recently
+# used first
+_pinv_cache: "collections.OrderedDict[int, tuple]" = collections.OrderedDict()
+# reentrant: a weak reference's callback may run on the thread that holds it
+_pinv_lock = threading.RLock()
+
+
+def _pinv_key(a: torch.Tensor) -> tuple:
+    """What a cached pinv(A) must find unchanged besides the tensor object,
+    all of it read on the host: A's version counter, where and how its
+    elements lie, and what else decides the result of
+    ``torch.linalg.pinv``'s products (the stream it is ordered on, TF32)."""
+    stream = (torch.cuda.current_stream(a.device).cuda_stream if a.is_cuda
+              else None)
+    return (a._version, a.device, a.dtype, a.shape, a.stride(),
+            a.storage_offset(), a.data_ptr(), stream,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def _drop_pinv(key: int, ref: weakref.ref) -> None:
+    """Drop the entry of an A-matrix that has died."""
+    with _pinv_lock:
+        entry = _pinv_cache.get(key)
+        if entry is not None and entry[0] is ref:
+            del _pinv_cache[key]
+
+
+def _cached_pinv(a: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.pinv(a)``, computed once for an unchanged ``a`` (see
+    :func:`apg_fused`)."""
+    # an inference tensor has no version counter to check; a tensor that
+    # requires grad would share one graph between calls
+    cacheable = not (a.is_inference()
+                     or (a.requires_grad and torch.is_grad_enabled()))
+    if cacheable:
+        key = _pinv_key(a)
+        with _pinv_lock:
+            entry = _pinv_cache.get(id(a))
+            if entry is not None and entry[0]() is a and entry[1] == key:
+                _pinv_cache.move_to_end(id(a))
+                apg_fused.pinv_reused += 1
+                return entry[2]
+    a_pinv = torch.linalg.pinv(a)
+    if cacheable:
+        entry = (weakref.ref(a, functools.partial(_drop_pinv, id(a))), key,
+                 a_pinv)
+    with _pinv_lock:
+        if cacheable:
+            _pinv_cache[id(a)] = entry
+            _pinv_cache.move_to_end(id(a))
+            while len(_pinv_cache) > PINV_CACHE_SIZE:
+                _pinv_cache.popitem(last=False)
+        apg_fused.pinv_computed += 1
+    return a_pinv
+
+
 def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,
               phases: Sequence[Tuple[int, int, int]] = PARITY_PHASES,
               init_iters: int = 8, init_sweeps: int = 3,
@@ -569,13 +630,30 @@ def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,
     version when they are CPU tensors. With ``use_pallas=False`` (the JAX
     package's switch) the plain version runs wherever the tensors lie, the
     card included, at any dtype and dim; with the default, CUDA inputs the
-    kernel does not take raise. ``a_pinv`` ((d4, R), optional) is a
-    precomputed ``pinv(A)``; production callers compute it once per A-matrix.
-    ``block`` and ``sublanes`` (the JAX package's TPU tile sizes) are taken
-    at the JAX package's positions and change nothing: the CUDA kernel's
-    layout is fixed.
+    kernel does not take raise. ``block`` and ``sublanes`` (the JAX
+    package's TPU tile sizes) are taken at the JAX package's positions and
+    change nothing: the CUDA kernel's layout is fixed.
 
-    ``apg_fused.launches`` counts the kernel launches.
+    ``pinv(A)`` is cached: the last ``PINV_CACHE_SIZE`` A-matrices keep the
+    tensor ``torch.linalg.pinv`` returned for them, least recently used
+    dropped first. A call reuses it when it passes the same tensor object,
+    at the same ``a._version``, device, dtype, shape, strides, offset and
+    data pointer, on the same CUDA stream and TF32 setting; the check reads
+    no element of A and does not synchronize. Anything else computes
+    ``torch.linalg.pinv(a)`` as an uncached call would: a new tensor, even
+    with equal contents, an in-place edit of A (it bumps ``_version``), an
+    inference tensor (it has no version counter), an A that requires grad
+    with grad enabled. The cache holds A by a weak reference, so it keeps
+    no A-matrix alive, and drops an entry when its A dies. Like torch's own
+    checks on tensors saved for backward, it cannot see a write that
+    bypasses the version counter, through ``.data`` or a raw pointer: a
+    caller who writes A so passes ``a_pinv`` or a fresh tensor. ``a_pinv``
+    ((d4, R), optional) is a given ``pinv(A)``, used as it is; the cache is
+    then neither read nor written.
+
+    ``apg_fused.launches`` counts the kernel launches,
+    ``apg_fused.pinv_computed`` the pinvs computed (cache misses) and
+    ``apg_fused.pinv_reused`` the pinvs taken from the cache.
     """
     phases = tuple(map(_phase, phases))
     if n_counts.device != a.device:
@@ -592,7 +670,7 @@ def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,
             ai = a_rast.imag.contiguous()
         with span(tracing.APG_PINV):
             if a_pinv is None:
-                a_pinv = torch.linalg.pinv(a)
+                a_pinv = _cached_pinv(a)
         with span(tracing.APG_WARM_START):
             rho0_r, rho0_i = linear_inversion_start(a_pinv, n_counts, dim)
         with span(tracing.APG_KERNEL):
@@ -610,6 +688,8 @@ def apg_fused(a: torch.Tensor, n_counts: torch.Tensor, dim: int,
 
 
 apg_fused.launches = 0
+apg_fused.pinv_computed = 0
+apg_fused.pinv_reused = 0
 
 
 def apg_fused_sharded(a: torch.Tensor, n_counts: torch.Tensor, mesh,

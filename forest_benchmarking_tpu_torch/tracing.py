@@ -28,7 +28,7 @@ PREFIX = "fbt."
 # tomography.pgdb_process_estimate_batched)
 APG_FUSED = "fbt.apg_fused"
 APG_RASTER = "fbt.apg_fused.raster"          # raster_a_matrix, real/imag planes
-APG_PINV = "fbt.apg_fused.pinv"              # pinv(A), computed or passed in
+APG_PINV = "fbt.apg_fused.pinv"              # pinv(A): cached, computed or given
 APG_WARM_START = "fbt.apg_fused.warm_start"  # linear_inversion_start
 APG_KERNEL = "fbt.apg_fused.kernel"          # A^T and the solve
 APG_ASSEMBLE = "fbt.apg_fused.assemble"      # the complex estimates

@@ -1027,3 +1027,24 @@ def test_bench_throughput_on_the_card(cuda):
     assert perf["mean_rel_frob_err"] < 0.12
     assert perf["mean_rel_frob_err_parity"] < 0.12
     assert 0 < perf["parity_fraction_f32_peak"] < 1
+
+
+def test_fused_entry_reuses_pinv_of_one_a_matrix_on_the_card(cuda):
+    """Two calls of the fused entry with one A-matrix at B = 41: the first
+    computes pinv(A), the second takes it from the cache (one reuse, no
+    second pinv) and gives bitwise the first call's estimates."""
+    from forest_benchmarking_tpu_torch import tomography
+    a = torch.tensor(process_tomo_A_matrix(2), dtype=torch.complex64,
+                     device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    n, _ = synth_process_datasets(gen, a, 4, 41, 2000)
+    kw = dict(dim=4, method="apg", cp_method="pallas",
+              fused_schedule="headline")
+    fn = lanes_apg.apg_fused
+    computed, reused = fn.pinv_computed, fn.pinv_reused
+    first = tomography.pgdb_process_estimate_batched(a, n, **kw)
+    assert (fn.pinv_computed, fn.pinv_reused) == (computed + 1, reused)
+    second = tomography.pgdb_process_estimate_batched(a, n, **kw)
+    torch.cuda.synchronize()
+    assert (fn.pinv_computed, fn.pinv_reused) == (computed + 1, reused + 1)
+    assert torch.equal(second, first)

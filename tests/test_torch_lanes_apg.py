@@ -6,6 +6,7 @@ tables and the loader's library names.
 The dim=4 parity-schedule comparison lives in test_torch_slice.py, so that
 the JAX CPU compiles run on different workers.
 """
+import contextlib
 import importlib.util
 import re
 from pathlib import Path
@@ -465,3 +466,160 @@ def test_apg_fused_lanes_matches_jax(batch):
     for g, w in zip(got, want):
         assert g.shape == (4, 4, *batch)
         assert np.max(np.abs(g.numpy() - np.asarray(w))) <= 1e-9
+
+
+# ---- the cache of pinv(A) inside apg_fused ----
+
+SHORT = dict(phases=((2, 1, 1),), init_iters=1, final_iters=1)
+
+
+def _fresh_case(dim, seed=0, batch=3):
+    """A new (R, d4) complex128 A-matrix tensor and (B, R) counts."""
+    a = torch.tensor(process_tomo_A_matrix(dim // 2))
+    counts = np.random.default_rng(seed).random((batch, a.shape[0]))
+    return a, torch.tensor(counts / counts.sum(1, keepdims=True))
+
+
+def _pinv_counters():
+    return lanes_apg.apg_fused.pinv_computed, lanes_apg.apg_fused.pinv_reused
+
+
+@pytest.mark.parametrize("dim", [2, 4])
+def test_pinv_is_computed_once_per_a_matrix(dim):
+    """N calls with one A compute pinv(A) once and reuse it N - 1 times, and
+    give estimates bitwise those of calls given ``torch.linalg.pinv(a)``."""
+    a, n = _fresh_case(dim)
+    want = lanes_apg.apg_fused(a, n, dim, a_pinv=torch.linalg.pinv(a),
+                               **SHORT)
+    computed, reused = _pinv_counters()
+    for _ in range(4):
+        assert torch.equal(lanes_apg.apg_fused(a, n, dim, **SHORT), want)
+    assert _pinv_counters() == (computed + 1, reused + 3)
+
+
+@pytest.mark.parametrize("dim", [2, 4])
+def test_an_in_place_edit_of_a_recomputes_pinv(dim):
+    """``a[0, 0] += 1`` bumps A's version: the next call computes pinv(A)
+    again and gives what a fresh tensor of the edited A gives."""
+    a, n = _fresh_case(dim, seed=1)
+    before = lanes_apg.apg_fused(a, n, dim, **SHORT)
+    computed, reused = _pinv_counters()
+    a[0, 0] += 1
+    edited = lanes_apg.apg_fused(a, n, dim, **SHORT)
+    assert _pinv_counters() == (computed + 1, reused)
+    assert not torch.equal(edited, before)
+    assert torch.equal(edited, lanes_apg.apg_fused(a.clone(), n, dim, **SHORT))
+    assert torch.equal(edited, lanes_apg.apg_fused(
+        a, n, dim, a_pinv=torch.linalg.pinv(a), **SHORT))
+    assert _pinv_counters() == (computed + 2, reused)
+
+
+@pytest.mark.parametrize("dim", [2, 4])
+def test_a_new_tensor_with_equal_contents_misses(dim):
+    a, n = _fresh_case(dim, seed=2)
+    first = lanes_apg.apg_fused(a, n, dim, **SHORT)
+    computed, reused = _pinv_counters()
+    again = lanes_apg.apg_fused(a.clone(), n, dim, **SHORT)
+    assert _pinv_counters() == (computed + 1, reused)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("dim", [2, 4])
+def test_a_callers_a_pinv_bypasses_the_cache(dim):
+    """A given ``a_pinv`` is used as it is: both counters stay, no entry is
+    made, and a cached entry is not used."""
+    a, n = _fresh_case(dim, seed=3)
+    a_pinv = torch.linalg.pinv(a)
+    computed, reused = _pinv_counters()
+    lanes_apg.apg_fused(a, n, dim, a_pinv=a_pinv, **SHORT)
+    assert _pinv_counters() == (computed, reused)
+    assert id(a) not in lanes_apg._pinv_cache
+    cached = lanes_apg.apg_fused(a, n, dim, **SHORT)
+    computed, reused = _pinv_counters()
+    given = lanes_apg.apg_fused(a, n, dim, a_pinv=a_pinv.roll(1, 0),
+                                **SHORT)
+    assert _pinv_counters() == (computed, reused)
+    assert not torch.equal(given, cached)
+
+
+@pytest.mark.parametrize("dim", [2, 4])
+def test_the_cache_keeps_no_a_matrix_alive(dim):
+    """After ``del a`` the A-matrix is gone and so is its entry."""
+    import gc
+    import weakref
+    a, n = _fresh_case(dim, seed=4)
+    lanes_apg.apg_fused(a, n, dim, **SHORT)
+    key, ref = id(a), weakref.ref(a)
+    assert lanes_apg._pinv_cache[key][0]() is a
+    del a
+    gc.collect()
+    assert ref() is None
+    assert key not in lanes_apg._pinv_cache
+
+
+@pytest.mark.parametrize("dim", [2, 4])
+def test_the_cache_keeps_the_least_recently_used_out(dim):
+    """More A-matrices than entries: the cache holds ``PINV_CACHE_SIZE``, the
+    most recently used; the oldest computes pinv again."""
+    size = lanes_apg.PINV_CACHE_SIZE
+    mats = [_fresh_case(dim, seed=5)[0].clone() for _ in range(size + 2)]
+    _, n = _fresh_case(dim, seed=5, batch=1)
+    computed, reused = _pinv_counters()
+    for a in mats:
+        lanes_apg.apg_fused(a, n, dim, **SHORT)
+        assert len(lanes_apg._pinv_cache) <= size
+    assert _pinv_counters() == (computed + size + 2, reused)
+    for a in mats[2:]:
+        lanes_apg.apg_fused(a, n, dim, **SHORT)
+    assert _pinv_counters() == (computed + size + 2, reused + size)
+    lanes_apg.apg_fused(mats[0], n, dim, **SHORT)
+    assert _pinv_counters() == (computed + size + 3, reused + size)
+    assert list(lanes_apg._pinv_cache)[-1] == id(mats[0])
+
+
+@pytest.mark.parametrize("dim", [2, 4])
+def test_tensors_without_a_version_to_check_always_compute(dim):
+    """An inference tensor has no version counter, and an A that requires
+    grad would share one graph between calls: each call computes pinv(A),
+    and the results equal the cached route's."""
+    a, n = _fresh_case(dim, seed=6)
+    want = lanes_apg.apg_fused(a, n, dim, **SHORT)
+    with torch.inference_mode():
+        a_inf = a.clone()
+    a_grad = a.clone().requires_grad_()
+    for x in (a_inf, a_grad):
+        computed, reused = _pinv_counters()
+        for _ in range(2):
+            with torch.no_grad() if x is a_inf else contextlib.nullcontext():
+                got = lanes_apg.apg_fused(x, n, dim, **SHORT)
+            assert torch.equal(got.detach(), want)
+        assert _pinv_counters() == (computed + 2, reused)
+        assert id(x) not in lanes_apg._pinv_cache
+
+
+def test_the_cache_serves_callers_on_several_threads(dim=2):
+    """Eight threads, with the interpreter switching threads as often as it
+    can, calling with two A-matrices in turn: every estimate is its A's,
+    and every call is counted once, as computed or reused (a lost update
+    would miss one)."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+    mats = [_fresh_case(dim, seed=7)[0] for _ in range(2)]
+    _, n = _fresh_case(dim, seed=7)
+    mats[1][0, 0] += 1
+    want = [lanes_apg.apg_fused(a, n, dim, a_pinv=torch.linalg.pinv(a),
+                                **SHORT) for a in mats]
+    computed, reused = _pinv_counters()
+    calls = 48
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            outs = list(pool.map(
+                lambda i: lanes_apg.apg_fused(mats[i % 2], n, dim, **SHORT),
+                range(calls), timeout=300))
+    finally:
+        sys.setswitchinterval(interval)
+    assert all(torch.equal(o, want[i % 2]) for i, o in enumerate(outs))
+    done, hit = _pinv_counters()
+    assert done - computed >= 2 and (done - computed) + (hit - reused) == calls

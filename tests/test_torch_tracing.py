@@ -151,3 +151,31 @@ def test_the_benchmarks_span_reduction_reads_these_names(tomo_inputs, route):
     assert {k: v.count for k, v in s.spans.items()
             if k != program_spans.OUTSIDE} == {k: CALLS for k in [root, *steps]}
     assert program_spans.PROGRAM_PREFIX == tracing.PREFIX
+
+
+def _inside(event, name):
+    """Whether ``event`` runs inside a span ``name`` (at any depth)."""
+    parent = event.cpu_parent
+    while parent is not None:
+        if parent.name == name:
+            return True
+        parent = parent.cpu_parent
+    return False
+
+
+@pytest.mark.parametrize("lookup", ["hit", "miss"])
+def test_the_pinv_span_opens_on_a_cache_hit_and_runs_no_svd(tomo_inputs,
+                                                            lookup):
+    """A call whose A is cached still opens ``fbt.apg_fused.pinv`` once, and
+    no SVD runs inside it; a new A-matrix tensor runs its SVD there."""
+    a, n = tomo_inputs
+    _apg(a, n, "direct")
+    if lookup == "miss":
+        a = a.clone()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _apg(a, n, "direct")
+    events = list(prof.events())
+    assert [e.name for e in events].count(tracing.APG_PINV) == 1
+    svd = [e for e in events if "svd" in e.name
+           and _inside(e, tracing.APG_PINV)]
+    assert bool(svd) == (lookup == "miss")
