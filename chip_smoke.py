@@ -70,7 +70,8 @@ Phases, each of which must pass:
    ``quantum_volume.sample_heavy_outputs_batched(device="cuda")``: depth 8,
    C = 1600 circuits, 1000 shots, ideal and with 2% depolarizing noise by
    the trajectory method at T = 1000. Each kernel's launch counter, zeroed
-   just before, must move; the heavy-output probability must lie in
+   just before, must move (the shot kernel's once on the noisy call, one
+   shot a trajectory, and not on the ideal one); the heavy-output probability must lie in
    [0.83, 0.87] (ideal; the asymptote is (1 + ln 2)/2 = 0.847) and
    [0.60, 0.72] (noisy), and within 4 binomial sigma of the same path run
    on the card with the plain versions in place of the kernels;
@@ -82,7 +83,11 @@ Phases, each of which must pass:
    device sleep (``queued_ms``: the card runs them back to back, so the
    host's time per call stays out), beside the host's time per wrapper
    call, at depths 8 and 4; the full-size kernel-against-plain check uses
-   these outputs; the registers, spills and stack of every depth
+   these outputs; on the trajectory kernel's output, the shot kernel alone,
+   its wrapper, its plain version and the route it replaced (the transposed
+   copy, ``torch.multinomial``, gather, sum), all four bitwise the same
+   tallies from one generator state, beside the exponential draw alone;
+   the registers, spills and stack of every depth
    instantiation of both kernels (ptxas); a ``torch.profiler`` pass over
    each wrapper alone: the trajectory wrapper must launch no matrix product
    (W and M' are formed in the kernel), the ideal wrapper nothing but the
@@ -391,7 +396,9 @@ the largest |kernel - plain f64| of the B = 16384 check, with the median
 and 99th percentile over problems; CP projection, the largest
 |kernel - eigh f64| at B = 16384, with ``library_ms`` the time of
 ``proj_choi_to_completely_positive``; both with ``registers`` and
-``spill_bytes`` (stores, loads) from ptxas. The last line
+``spill_bytes`` (stores, loads) from ptxas; shots, 0 (bitwise, with
+``bitwise``), ``library_ms`` the route the shot kernel replaced, its draw
+included, ``draw_ms`` the draw alone. The last line
 is ``{"ok": true, ...}``. Exits non-zero,
 printing no result, if CUDA is unavailable or any phase fails.
 """
@@ -661,13 +668,16 @@ def print_top(top) -> None:
 def plain_versions(pallas_traj):
     """Run the quantum-volume entry points with the kernels' plain versions
     in their place (the module attributes the entry points call)."""
-    saved = pallas_traj.ideal_probs, pallas_traj.traj_probs
+    saved = (pallas_traj.ideal_probs, pallas_traj.traj_probs,
+             pallas_traj.heavy_tallies)
     pallas_traj.ideal_probs = pallas_traj.ideal_probs_reference
     pallas_traj.traj_probs = pallas_traj.traj_probs_reference
+    pallas_traj.heavy_tallies = pallas_traj.heavy_tallies_reference
     try:
         yield
     finally:
-        pallas_traj.ideal_probs, pallas_traj.traj_probs = saved
+        (pallas_traj.ideal_probs, pallas_traj.traj_probs,
+         pallas_traj.heavy_tallies) = saved
 
 
 def qv_inputs(quantum_volume, haar_rand_unitary, gen, depth, circuits,
@@ -3532,16 +3542,19 @@ def main() -> int:
                                 ("noisy", True, 0.60, 0.72)):
         pallas_traj.ideal_probs.launches = 0
         pallas_traj.traj_probs.launches = 0
+        pallas_traj.heavy_tallies.launches = 0
         prob, peak, wall = heavy_path(SEED + 1, noisy)
         moved = (pallas_traj.ideal_probs.launches,
-                 pallas_traj.traj_probs.launches)
+                 pallas_traj.traj_probs.launches,
+                 pallas_traj.heavy_tallies.launches)
         with plain_versions(pallas_traj):
             prob_p, peak_p, wall_p = heavy_path(SEED + 1, noisy)
         total = QV_CIRCUITS * QV_SHOTS
         sigma = math.sqrt((prob * (1 - prob) + prob_p * (1 - prob_p)) / total)
         print(f"main path QV {name}: depth {QV_DEPTH} C={QV_CIRCUITS} "
               f"shots={QV_SHOTS}{f' T={QV_TRAJ} p={QV_DEPOL}' if noisy else ''}"
-              f" launches ideal/traj={moved[0]}/{moved[1]} heavy-output "
+              f" launches ideal/traj/shots={moved[0]}/{moved[1]}/{moved[2]}"
+              f" heavy-output "
               f"probability {prob:.5f} (plain versions {prob_p:.5f}, "
               f"|diff| = {abs(prob - prob_p) / sigma:.2f} sigma) peak memory "
               f"{peak:.2f} GiB (plain {peak_p:.2f} GiB) host clock "
@@ -3549,12 +3562,17 @@ def main() -> int:
         check(moved[0] > 0, f"QV {name}: the ideal kernel was not launched")
         check(moved[1] > 0 or not noisy,
               f"QV {name}: the trajectory kernel was not launched")
+        # T = shots: one shot a trajectory, the shot kernel's route
+        check(moved[2] == int(noisy),
+              f"QV {name}: {moved[2]} launches of the shot kernel")
         check(lo <= prob <= hi, f"QV {name}: heavy-output probability {prob}")
         check(abs(prob - prob_p) <= 4 * sigma,
               f"QV {name}: kernel and plain paths differ by "
               f"{abs(prob - prob_p) / sigma:.2f} sigma")
         qv_launches["ideal_probs"] = qv_launches.get("ideal_probs", 0) + moved[0]
         qv_launches["traj_probs"] = qv_launches.get("traj_probs", 0) + moved[1]
+        qv_launches["heavy_tallies"] = (qv_launches.get("heavy_tallies", 0)
+                                        + moved[2])
     # the same calls warm, by CUDA events with the counts fetched (the
     # clock phase 23 holds the harness's config-5 figures against)
     qv_warm_ms = {name: cuda_ms(lambda: heavy_call(SEED + 1, noisy).cpu())[0]
@@ -3631,7 +3649,52 @@ def main() -> int:
     check(err_i <= 2e-6, f"ideal_probs at full width: {err_i:.3e}")
     check(share_t > 0.97 and norm_t < 1e-5,
           f"traj_probs at full width: {share_t:.4f} agree, sums {norm_t:.3e}")
-    del kern_t, plain_t, traj_in
+    del plain_t, traj_in
+    # the trajectory route's shots on the trajectory kernel's output, one a
+    # trajectory: the shot kernel alone (with its output's fill), its
+    # wrapper, its plain version on the same variates q, and the route the
+    # kernel replaced (the transposed copy, torch.multinomial with its own
+    # draw of q, gather, sum) from the generator state q was drawn from:
+    # all four bitwise the same tallies
+    heavy_s = quantum_volume._heavy_outputs(kern_i)
+    g_s = torch.Generator(device=dev).manual_seed(SEED + 10)
+    shape_s = (QV_CIRCUITS * QV_TRAJ, 2 ** QV_DEPTH)
+    q_s = torch.empty(shape_s, device=dev).exponential_(generator=g_s)
+
+    def multinomial_shots(g):
+        rows = kern_t.transpose(1, 2).reshape(shape_s)
+        picked = torch.multinomial(rows, 1, replacement=True, generator=g)
+        return torch.gather(heavy_s, 1,
+                            picked.reshape(QV_CIRCUITS, QV_TRAJ)).sum(1)
+
+    ms_s, out_s = cuda_ms(lambda: pallas_traj._shots_launch(kern_t, heavy_s,
+                                                            q_s))
+    ms_sw, tally_s = cuda_ms(lambda: pallas_traj.heavy_tallies(
+        kern_t, heavy_s, q_s))
+    ms_sp, plain_s = cuda_ms(lambda: pallas_traj.heavy_tallies_reference(
+        kern_t, heavy_s, q_s))
+    ms_sx, _ = cuda_ms(lambda: torch.empty(shape_s, device=dev).exponential_(
+        generator=g_s))
+    ms_sl, _ = cuda_ms(lambda: multinomial_shots(g_s))
+    lib_s = multinomial_shots(
+        torch.Generator(device=dev).manual_seed(SEED + 10))
+    same_s = [torch.equal(out_s[:QV_CIRCUITS], plain_s),
+              torch.equal(tally_s, plain_s), torch.equal(lib_s, plain_s)]
+    shots_bound = bound_ms(math.prod(shape_s),
+                           nbytes(kern_t, q_s, heavy_s, out_s))
+    print(f"timing heavy_tallies: depth {QV_DEPTH} C={QV_CIRCUITS} "
+          f"T={QV_TRAJ} kernel {ms_s:.3f} ms, wrapper {ms_sw:.3f} ms, plain "
+          f"{ms_sp:.3f} ms (no copy), exponential draw {ms_sx:.3f} ms; "
+          f"draw + wrapper {ms_sx + ms_sw:.3f} ms against the multinomial "
+          f"route {ms_sl:.3f} ms; bound {shots_bound[0]:.3f} ms "
+          f"({shots_bound[1]}), kernel at "
+          f"{100 * shots_bound[0] / ms_s:.1f}% of it, on {card}")
+    print(f"check heavy_tallies: kernel, wrapper, multinomial route bitwise "
+          f"the plain version: {same_s}; flag {int(out_s[QV_CIRCUITS + 3])}")
+    check(all(same_s), f"heavy_tallies at full width: bitwise {same_s}")
+    check(int(out_s[QV_CIRCUITS + 3]) == 1,
+          "heavy_tallies at full width: the rows' checks failed")
+    del kern_t, q_s, out_s
     qv_regs = {}
     for kernel in ("traj_probs_kernel", "ideal_probs_kernel"):
         qv_regs[kernel] = depth_ptxas(kernels.build_log(), kernel)
@@ -4052,6 +4115,12 @@ def main() -> int:
              wrapper_ms=ms_iw,
              registers={d: r[0] for d, r in
                         qv_regs["ideal_probs_kernel"].items()}),
+        dict(record("heavy_tallies",
+                    "forest_benchmarking_tpu_torch/csrc/qv_shots.cu",
+                    "forest_benchmarking_tpu/quantum_volume.py:610",
+                    qv_launches["heavy_tallies"], 0, ms_s, ms_sp,
+                    shots_bound, library_ms=ms_sl),
+             wrapper_ms=ms_sw, draw_ms=ms_sx, bitwise=all(same_s)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -132,8 +132,8 @@ def load(csrc: Path = CSRC,
     paths = _lib_paths(csrc, build_dir)
     if not all(path.exists() for path in paths.values()):
         _build(paths, csrc)
-    apg, qv = (ctypes.CDLL(str(paths[stem])) for stem in ("apg_fused",
-                                                          "qv_traj"))
+    apg, qv, shots = (ctypes.CDLL(str(paths[stem])) for stem in (
+        "apg_fused", "qv_traj", "qv_shots"))
     apg.apg_fused_launch.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.c_int] * 3 + [ctypes.POINTER(ApgSchedule), ctypes.c_void_p]
     apg.apg_fused_launch.restype = ctypes.c_int
@@ -146,6 +146,9 @@ def load(csrc: Path = CSRC,
     qv.ideal_probs_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     qv.ideal_probs_launch.restype = ctypes.c_int
+    shots.heavy_tallies_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    shots.heavy_tallies_launch.restype = ctypes.c_int
     apg.fbt_cuda_error_string.argtypes = [ctypes.c_int]
     apg.fbt_cuda_error_string.restype = ctypes.c_char_p
     return types.SimpleNamespace(
@@ -153,6 +156,7 @@ def load(csrc: Path = CSRC,
         cp_project_launch=apg.cp_project_launch,
         traj_probs_launch=qv.traj_probs_launch,
         ideal_probs_launch=qv.ideal_probs_launch,
+        heavy_tallies_launch=shots.heavy_tallies_launch,
         fbt_cuda_error_string=apg.fbt_cuda_error_string)
 
 

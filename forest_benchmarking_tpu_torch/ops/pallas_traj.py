@@ -27,6 +27,12 @@ draws one branch with its Born weight from a uniform variate.
   ``csrc/qv_traj.cu`` for tensors on the card, the plain versions
   :func:`traj_probs_reference` and :func:`ideal_probs_reference` for tensors
   on the CPU. Each counts its kernel launches in ``.launches``.
+- :func:`heavy_tallies` draws one shot from each trajectory as
+  ``torch.multinomial(rows, 1, replacement=True)`` does, from exponential
+  variates drawn by the caller, and tallies the heavy ones: the kernel of
+  ``csrc/qv_shots.cu`` on the card (no TPU kernel: the JAX package draws
+  with ``jax.random.categorical``), the plain version
+  :func:`heavy_tallies_reference` on the CPU.
 
 Unlike the TPU kernels, the CUDA kernels take every depth from 2 to 10,
 odd depths included (the last qubit of an odd depth has no gate): the JAX
@@ -36,6 +42,7 @@ math.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -45,6 +52,7 @@ from forest_benchmarking_tpu_torch.sim.statevector import apply_gate_matrix
 
 __all__ = ["traj_probs_reference", "traj_probs_kernel", "traj_probs",
            "ideal_probs_reference", "ideal_probs_kernel", "ideal_probs",
+           "heavy_tallies_reference", "heavy_tallies_kernel", "heavy_tallies",
            "traj_flops_per_circuit", "ideal_circuits_per_warp", "MIN_DEPTH",
            "MAX_DEPTH", "MAX_KRAUS", "IDEAL_WARPS", "supports_pallas_traj",
            "traj_probs_pallas", "ideal_probs_pallas"]
@@ -363,6 +371,109 @@ def traj_probs(perms: torch.Tensor, gates: torch.Tensor, kraus: torch.Tensor,
 
 
 traj_probs.launches = 0
+
+
+# ----------------------------------------------------------------------
+# One shot from each trajectory, tallied against the heavy sets
+# ----------------------------------------------------------------------
+
+# torch.multinomial's two messages for rows it does not take, and the one
+# of the shot kernel's flag, which stands for both
+NOT_A_DISTRIBUTION = ("probability tensor contains either `inf`, `nan` or "
+                      "element < 0")
+ZERO_SUM = "invalid multinomial distribution (sum of probabilities <= 0)"
+INVALID_ROWS = f"{NOT_A_DISTRIBUTION}, or {ZERO_SUM}"
+
+
+def heavy_tallies_reference(traj: torch.Tensor, heavy: torch.Tensor,
+                            q: torch.Tensor) -> torch.Tensor:
+    """Heavy tallies of one shot from each trajectory, in plain PyTorch:
+    what ``torch.multinomial(rows, 1, replacement=True)`` computes once it
+    has drawn ``q`` (its single-sample route: the checks by
+    ``torch._assert_async``, then the first index of the largest rows / q),
+    on ``traj`` as it lies, gathered from the heavy sets and summed per
+    circuit.
+
+    :param traj: (C, 2^d, T) trajectory probabilities (:func:`traj_probs`).
+    :param heavy: (C, 2^d) bool heavy sets.
+    :param q: (C * T, 2^d) Exp(1) variates; the rows, trajectory t of
+        circuit c at row c * T + t, are taken in ``q``'s dtype.
+    :return: (C,) int64 heavy tallies.
+    :raises RuntimeError: with ``torch.multinomial``'s message, where a row
+        holds a NaN, an infinity or a negative number, or sums to zero (on
+        the card, as there, a device-side assert).
+    """
+    c, n, t = traj.shape
+    # the checks on float32 rows say what they say on the rows widened
+    lo, hi = torch.aminmax(traj)
+    torch._assert_async((hi < math.inf) & (lo >= 0), NOT_A_DISTRIBUTION)
+    torch._assert_async(~(traj.sum(1) == 0).any(), ZERO_SUM)
+    samples = torch.argmax(traj / q.view(c, t, n).transpose(1, 2), dim=1)
+    return torch.gather(heavy, 1, samples).sum(1)
+
+
+def _shots_launch(traj: torch.Tensor, heavy: torch.Tensor,
+                  q: torch.Tensor) -> torch.Tensor:
+    """One launch of the shot kernel on checked inputs; counts it. Returns
+    its (C + 4,) int64 output: the tallies, the two checks' counts, the
+    blocks' tickets and the flag (1 where no row fails a check)."""
+    c, n, t = traj.shape
+    out = torch.zeros(c + 4, dtype=torch.int64, device=traj.device)
+    _launch(kernels.load().heavy_tallies_launch, traj.device,
+            traj.data_ptr(), q.data_ptr(), heavy.data_ptr(), out.data_ptr(),
+            c, n.bit_length() - 1, t, q.element_size())
+    heavy_tallies.launches += 1
+    return out
+
+
+def heavy_tallies_kernel(traj: torch.Tensor, heavy: torch.Tensor,
+                         q: torch.Tensor) -> torch.Tensor:
+    """Launch the shot kernel of ``csrc/qv_shots.cu`` on PyTorch's current
+    stream: :func:`heavy_tallies_reference` on float32 ``traj``, bool
+    ``heavy`` and float32 or float64 ``q`` on one card, in one device launch
+    after the zeroed output's fill. Rows that fail ``torch.multinomial``'s
+    checks fail a ``torch._assert_async`` on the kernel's flag, as
+    ``torch.multinomial``'s do on the card: no host waits for the kernel.
+    Adds one to ``heavy_tallies.launches`` per launch."""
+    if traj.dim() != 3:
+        raise ValueError(f"traj must be (C, 2^depth, T), got {tuple(traj.shape)}")
+    c, n, t = traj.shape
+    depth = n.bit_length() - 1
+    if n != 1 << depth:
+        raise ValueError(f"traj's outputs must be 2^depth, got {n}")
+    _check_depth(depth)
+    dev = traj.device
+    _check_cuda("traj", traj, dev, torch.float32, (c, n, t))
+    _check_cuda("heavy", heavy, dev, torch.bool, (c, n))
+    if q.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"q must be float32 or float64, got {q.dtype}")
+    _check_cuda("q", q, dev, q.dtype, (c * t, n))
+    traj, heavy, q = traj.contiguous(), heavy.contiguous(), q.contiguous()
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned: the kernel reads it in "
+                         "16-byte loads")
+    if c * t == 0:
+        return torch.zeros(c, dtype=torch.int64, device=dev)
+    out = _shots_launch(traj, heavy, q)
+    torch._assert_async(out[c + 3], INVALID_ROWS)
+    return out[:c]
+
+
+def heavy_tallies(traj: torch.Tensor, heavy: torch.Tensor,
+                  q: torch.Tensor) -> torch.Tensor:
+    """(C,) heavy tallies of one shot from each of the (C, 2^d, T)
+    trajectories ``traj``, drawn with the (C * T, 2^d) exponential variates
+    ``q`` as ``torch.multinomial`` draws one sample: the CUDA kernel for
+    tensors on the card, the plain version for tensors on the CPU.
+    ``heavy_tallies.launches`` counts kernel launches."""
+    if traj.is_cuda:
+        return heavy_tallies_kernel(traj, heavy, q)
+    if traj.device.type == "cpu":
+        return heavy_tallies_reference(traj, heavy, q)
+    raise ValueError(f"unsupported device {traj.device}")
+
+
+heavy_tallies.launches = 0
 
 
 # ----------------------------------------------------------------------

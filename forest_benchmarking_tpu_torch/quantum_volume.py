@@ -446,7 +446,12 @@ def sample_heavy_outputs_batched(generator: Optional[torch.Generator],
     - ``noisy_method="trajectory"``: Kraus-unravelled statevector
       trajectories (:func:`~.ops.pallas_traj.traj_probs`: the trajectory
       kernel on the card). ``num_trajectories`` T (default ``num_shots``)
-      must divide ``num_shots``; each trajectory gives num_shots / T shots;
+      must divide ``num_shots``; each trajectory gives num_shots / T shots.
+      Where the kernels run and T = ``num_shots``, one shot a trajectory,
+      :func:`~.ops.pallas_traj.heavy_tallies` (the shot kernel) draws and
+      tallies them from the exponential variates ``torch.multinomial``
+      draws for one sample, with its tallies and generator state
+      (``torch.multinomial`` draws the shots of every other route);
     - ``noisy_method="auto"``: density at depth <= 6, trajectory above.
 
     On the card the kernels compute in float32 at every ``dtype``
@@ -455,7 +460,8 @@ def sample_heavy_outputs_batched(generator: Optional[torch.Generator],
     dev = entry_device(device)
     gen = _generator(generator, dev)
     cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
-    if _use_kernels(depth, dev):
+    kernels_run = _use_kernels(depth, dev)
+    if kernels_run:
         ideal, trajectories = pallas_traj.ideal_probs, pallas_traj.traj_probs
         kdtype = torch.float32
     else:
@@ -486,11 +492,19 @@ def sample_heavy_outputs_batched(generator: Optional[torch.Generator],
                         (num_circuits, depth, depth // 2, t), generator=gen,
                         device=dev, dtype=kdtype)
                     traj = trajectories(perms, gates.to(kcdtype),
-                                        kraus.to(kcdtype), uniforms,
-                                        depth).to(dtype)
+                                        kraus.to(kcdtype), uniforms, depth)
                 with span(tracing.QV_SHOTS):
+                    if kernels_run and num_shots == t:
+                        # one shot a trajectory: torch.multinomial's draw of
+                        # one sample, in its shape and dtype, and the rest of
+                        # its work in the shot kernel, on traj as it lies
+                        q = torch.empty((num_circuits * t, 2 ** depth),
+                                        dtype=dtype, device=dev)
+                        q.exponential_(generator=gen)
+                        return pallas_traj.heavy_tallies(traj, heavy, q)
                     # (C, 2^d, T) -> num_shots / T shots from each trajectory
-                    rows = traj.transpose(1, 2).reshape(num_circuits * t, -1)
+                    rows = traj.to(dtype).transpose(1, 2).reshape(
+                        num_circuits * t, -1)
                     samples = torch.multinomial(rows, num_shots // t,
                                                 replacement=True,
                                                 generator=gen)

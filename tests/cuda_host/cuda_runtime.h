@@ -1,10 +1,11 @@
-// cuda_runtime.h for a host build of csrc/qv_traj.cu: the CUDA features the
-// quantum-volume kernels use, emulated on the CPU. Every thread of a block
-// is a std::thread; a warp's lanes meet at a barrier for each shuffle and
-// __syncwarp, and a block's threads for __syncthreads. Shared memory starts
-// out as garbage, as on the card. Only full-warp masks are emulated.
-// tests/test_torch_qv_host_emulation.py builds the kernel source against it
-// with g++ (C++20) and runs the ideal kernel against the plain version.
+// cuda_runtime.h for a host build of csrc/qv_traj.cu and csrc/qv_shots.cu:
+// the CUDA features the quantum-volume kernels use, emulated on the CPU.
+// Every thread of a block is a std::thread; a warp's lanes meet at a barrier
+// for each shuffle and __syncwarp, and a block's threads for __syncthreads.
+// Shared memory starts out as garbage, as on the card. Only full-warp masks
+// are emulated. tests/test_torch_qv_kernels.py and tests/test_torch_qv_shots.py
+// build the kernel sources against it with g++ (C++20) and run them against
+// the plain versions.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -35,6 +36,7 @@ inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
 
 struct float4 { float x, y, z, w; };
+struct double2 { double x, y; };
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
 
 namespace emu {
@@ -111,3 +113,11 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 template <class T> T __ldg(const T* p) { return *p; }
 using std::min; using std::max;
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+// the host's IEEE division rounds to nearest, as these intrinsics do
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }

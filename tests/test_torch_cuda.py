@@ -7,6 +7,8 @@ suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -578,6 +580,186 @@ def test_qv_float64_on_the_card(cuda, depth, kernels_run):
              pallas_traj.traj_probs.launches)
     assert moved == ((1, 1) if kernels_run else (0, 0))
     assert counts.shape == (4,) and bool(((counts >= 0) & (counts <= 20)).all())
+
+
+def depolarizing_pair():
+    """(16, 4, 4) complex128: 2% depolarizing noise on each qubit of a pair."""
+    ks = depolarizing_kraus_map(0.02)
+    return np.stack([np.kron(a, b) for a in ks for b in ks])
+
+
+def multinomial_route(gen, depth, circuits, n_traj, dtype, kraus):
+    """The card's trajectory route as it was before the shot kernel, from
+    the entry point's draws in its order: the kernels' probabilities, the
+    (C * T, 2^d) transposed copy, ``torch.multinomial`` of one sample a
+    trajectory, ``gather`` and ``sum``."""
+    cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    perms = quantum_volume._sample_perms(gen, circuits, depth)
+    gates = haar_rand_unitary(gen, 4, batch=(circuits, depth, depth // 2),
+                              dtype=dtype).to(torch.complex64)
+    heavy = quantum_volume._heavy_outputs(
+        pallas_traj.ideal_probs(perms, gates, depth).to(dtype))
+    kraus = torch.as_tensor(kraus).to(device=gen.device, dtype=cdtype)
+    uniforms = torch.rand((circuits, depth, depth // 2, n_traj),
+                          generator=gen, device=gen.device)
+    traj = pallas_traj.traj_probs(perms, gates, kraus.to(torch.complex64),
+                                  uniforms, depth).to(dtype)
+    rows = traj.transpose(1, 2).reshape(circuits * n_traj, -1)
+    samples = torch.multinomial(rows, 1, replacement=True, generator=gen)
+    return torch.gather(heavy, 1, samples.reshape(circuits, n_traj)).sum(1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_traj", [1, 37, 1000])
+@pytest.mark.parametrize("depth", range(2, 11))
+def test_one_shot_a_trajectory_is_the_multinomial_routes_bitwise(
+        cuda, depth, n_traj, dtype):
+    """On the same generator state, the entry point's one-pass route (the
+    exponential draw and one launch of the shot kernel) gives bitwise the
+    tallies of the transposed copy and ``torch.multinomial``, and leaves the
+    generator where they leave it: every depth, T below, at and past a
+    block of 128 trajectories, float32 and float64 variates."""
+    kraus = depolarizing_pair()
+    g_new = torch.Generator(device=cuda).manual_seed(40 + depth)
+    g_old = torch.Generator(device=cuda).manual_seed(40 + depth)
+    before = pallas_traj.heavy_tallies.launches
+    got = quantum_volume.sample_heavy_outputs_batched(
+        g_new, depth, 6, n_traj, dtype=dtype, kraus=kraus,
+        noisy_method="trajectory", device=cuda)
+    torch.cuda.synchronize()
+    assert pallas_traj.heavy_tallies.launches == before + 1
+    want = multinomial_route(g_old, depth, 6, n_traj, dtype, kraus)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert torch.equal(g_new.get_state(), g_old.get_state())
+
+
+def crafted_shots(cuda, depth, n_traj, dtype):
+    """(traj, heavy, q) on the card with exact ties for the largest
+    quotient (p = 2^k and q = 2^k at three outputs of a row, every other
+    quotient below 1) and, in the first five rows, a NaN quotient (0 / 0
+    at two outputs, ATen's argmax takes the first)."""
+    g = torch.Generator(device=cuda).manual_seed(depth)
+    c, n = 3, 2 ** depth
+    rows = torch.rand((c * n_traj, n), generator=g, device=cuda) * 0.5
+    q = torch.ones((c * n_traj, n), device=cuda)
+    ties = torch.rand((c * n_traj, n), generator=g,
+                      device=cuda).argsort(1)[:, :3]
+    scale = torch.tensor([0.5, 1.0, 2.0], device=cuda).expand_as(ties)
+    rows.scatter_(1, ties, scale)
+    q.scatter_(1, ties, scale)
+    rows[:5, 1:3] = 0.0
+    q[:5, 1:3] = 0.0
+    traj = rows.reshape(c, n_traj, n).transpose(1, 2).contiguous()
+    heavy = torch.rand((c, n), generator=g, device=cuda) > 0.5
+    return traj, heavy, q.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("depth,n_traj", [(2, 130), (4, 37), (8, 200),
+                                          (10, 129)])
+def test_shot_kernel_against_plain_version_on_crafted_variates(
+        cuda, depth, n_traj, dtype):
+    traj, heavy, q = crafted_shots(cuda, depth, n_traj, dtype)
+    got = pallas_traj.heavy_tallies_kernel(traj, heavy, q)
+    want = pallas_traj.heavy_tallies_reference(traj, heavy, q)
+    assert torch.equal(got, want)
+
+
+SPOILED_SHOTS = """
+import sys
+import torch
+from forest_benchmarking_tpu_torch.ops import pallas_traj
+how, dev = sys.argv[1], torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(2)
+traj = torch.rand((2, 8, 9), generator=g, device=dev)
+heavy = torch.rand((2, 8), generator=g, device=dev) > 0.5
+if how == "nan":
+    traj[1, 2, 5] = float("nan")
+elif how == "inf":
+    traj[0, 0, 3] = float("inf")
+elif how == "negative":
+    traj[1, 3, 0] = -1e-30
+else:
+    traj[0, :, 7] = 0.0
+rows = traj.transpose(1, 2).reshape(18, 8).cpu()
+try:
+    torch.multinomial(rows, 1, replacement=True)
+except RuntimeError as e:
+    print("cpu multinomial:", e, flush=True)
+q = torch.empty((18, 8), device=dev).exponential_(generator=g)
+pallas_traj.heavy_tallies(traj, heavy, q)
+print("returned", flush=True)
+torch.cuda.synchronize()
+print("synchronized", flush=True)
+"""
+
+
+@pytest.mark.parametrize("how", ["nan", "inf", "negative", "zero_sum"])
+def test_shot_kernel_raises_what_multinomial_raises(cuda, how):
+    """Rows that ``torch.multinomial`` refuses (on the CPU, with its
+    message) fail the shot kernel's device-side assert, as they fail
+    ``torch.multinomial``'s ``_assert_async`` on the card: the call returns
+    without waiting for the card, and the next synchronization raises and
+    ends the CUDA context, so each case runs in a process of its own."""
+    run = subprocess.run([sys.executable, "-c", SPOILED_SHOTS, how],
+                         cwd=kernels.CSRC.parents[1], capture_output=True,
+                         text=True, timeout=300)
+    want = (pallas_traj.ZERO_SUM if how == "zero_sum"
+            else pallas_traj.NOT_A_DISTRIBUTION)
+    assert f"cpu multinomial: {want}\nreturned\n" in run.stdout, run.stderr
+    assert "synchronized" not in run.stdout
+    assert run.returncode != 0 and "device-side assert" in run.stderr
+
+
+def test_shot_kernel_wrapper_makes_the_host_wait_for_nothing(cuda):
+    """No synchronizing call in the wrapper, so shards on several cards
+    are all queued before any is waited for."""
+    traj, heavy, q = crafted_shots(cuda, 8, 200, torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = pallas_traj.heavy_tallies(traj, heavy, q)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, pallas_traj.heavy_tallies_reference(traj, heavy,
+                                                                q))
+
+
+def test_shot_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    traj = torch.rand((2, 8, 4), device=cuda)
+    heavy = torch.zeros((2, 8), dtype=torch.bool, device=cuda)
+    q = torch.ones((8, 8), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        pallas_traj.heavy_tallies(traj.double(), heavy, q)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        pallas_traj.heavy_tallies(traj, heavy, q.half())
+    with pytest.raises(ValueError, match="shape"):
+        pallas_traj.heavy_tallies(traj, heavy, q[:4])
+    with pytest.raises(ValueError, match="2\\^depth"):
+        pallas_traj.heavy_tallies(traj[:, :6], heavy, q)
+
+
+@pytest.mark.parametrize("route", ["kernel", "ideal", "density",
+                                   "two_shots_a_trajectory", "cpu"])
+def test_shot_kernel_launches_only_on_its_route(cuda, route):
+    """One launch a call where the kernels run and T = num_shots (one shot
+    a trajectory); none on the ideal route, the density method, two shots a
+    trajectory (``torch.multinomial`` with replacement) or the CPU."""
+    dev = torch.device("cpu") if route == "cpu" else cuda
+    kw = dict(kraus=depolarizing_pair(), noisy_method="trajectory")
+    if route == "ideal":
+        kw = {}
+    elif route == "density":
+        kw["noisy_method"] = "density"
+    elif route == "two_shots_a_trajectory":
+        kw["num_trajectories"] = 10
+    before = pallas_traj.heavy_tallies.launches
+    counts = quantum_volume.sample_heavy_outputs_batched(
+        torch.Generator(device=dev).manual_seed(1), 4, 3, 20, device=dev,
+        **kw)
+    torch.cuda.synchronize()
+    assert counts.shape == (3,)
+    assert pallas_traj.heavy_tallies.launches == before + (route == "kernel")
 
 
 def test_apg_float64_plain_route_on_the_card(case):

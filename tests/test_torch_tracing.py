@@ -179,3 +179,24 @@ def test_the_pinv_span_opens_on_a_cache_hit_and_runs_no_svd(tomo_inputs,
     svd = [e for e in events if "svd" in e.name
            and _inside(e, tracing.APG_PINV)]
     assert bool(svd) == (lookup == "miss")
+
+
+@pytest.mark.parametrize("route", ["one_pass", "multinomial"])
+def test_the_shots_span_holds_the_route_of_the_call(monkeypatch, route):
+    """On the trajectory route ``fbt.qv.shots`` opens once a call whichever
+    way the shots go. Routed as on the card (the plain versions in the
+    kernels' place), one shot a trajectory: the exponential draw and the
+    argmax of ``heavy_tallies`` run inside it and ``torch.multinomial`` does
+    not; on the CPU's own route ``torch.multinomial`` runs there (and makes
+    the same draw and argmax itself)."""
+    if route == "one_pass":
+        monkeypatch.setattr(quantum_volume, "_use_kernels",
+                            lambda depth, device: True)
+    g = torch.Generator().manual_seed(6)
+    assert _spans(lambda: _qv("trajectory", g)) == _expected(
+        tracing.QV_SAMPLE_HEAVY, QV_STEPS["trajectory"])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _qv("trajectory", g)
+    ops = {e.name for e in prof.events() if _inside(e, tracing.QV_SHOTS)}
+    assert {"aten::exponential_", "aten::argmax"} <= ops
+    assert ("aten::multinomial" in ops) == (route == "multinomial")
