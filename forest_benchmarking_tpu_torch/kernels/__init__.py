@@ -1,14 +1,16 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build, load and launch the port's hand-written CUDA kernels.
 
-Each source ``forest_benchmarking_tpu_torch/csrc/<name>.cu`` is compiled on
-first use with ``nvcc`` for Hopper (``sm_90a``) into a shared library of its
-own with a plain C interface, loaded with ``ctypes``; the ``nvcc`` processes
-of all sources run at once. The libraries land in ``build/kernels/`` beside
-the package, named by a hash of the flags, the source and every file under
-``csrc/`` that the source includes (``#include "..."``), so an edited source
-or header builds anew and an unchanged one loads at once. ``load`` and
-``build_log`` also take another source directory (a variant of ``csrc/``
-to measure) and its own build directory. Nothing here runs at import time.
+This module is the one boundary between the ``ops/`` wrappers and the
+kernels. Each source ``forest_benchmarking_tpu_torch/csrc/<name>.cu`` is
+compiled on first use with ``nvcc`` for Hopper (``sm_90a``) into a shared
+library of its own with a plain C interface, loaded with ``ctypes``; the
+``nvcc`` processes of all sources run at once. The libraries land in
+``build/kernels/`` beside the package, named by a hash of the flags, the
+source and every file under ``csrc/`` that the source includes
+(``#include "..."``), so an edited source or header builds anew and an
+unchanged one loads at once. ``ENTRIES`` declares every ``extern "C"``
+function once; :func:`check_operand` checks a tensor before its pointer is
+passed, and :func:`launch` makes the call. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -23,8 +25,10 @@ import tempfile
 import types
 from pathlib import Path
 
-__all__ = ["ApgSchedule", "load", "build_log", "error_string", "CSRC",
-           "BUILD_DIR"]
+import torch
+
+__all__ = ["ApgSchedule", "ENTRIES", "load", "build_log", "check_operand",
+           "launch", "CSRC", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -49,6 +53,22 @@ class ApgSchedule(ctypes.Structure):
         ("sweeps_rest", ctypes.c_int * MAX_PHASES),
         ("final_sweeps_rest", ctypes.c_int),
     ]
+
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+# {extern "C" function: (source stem, argtypes, restype)}. Every launch
+# function takes PyTorch's current stream last and returns a cudaError_t.
+ENTRIES = {
+    "apg_fused_launch": ("apg_fused", [_PTR] * 9 + [_INT] * 3 + [
+        ctypes.POINTER(ApgSchedule), _PTR], _INT),
+    "cp_project_launch": ("apg_fused", [_PTR] * 2 + [_INT] * 2 + [_PTR], _INT),
+    "traj_probs_launch": ("qv_traj", [_PTR] * 5 + [_INT] * 4 + [_PTR], _INT),
+    "ideal_probs_launch": ("qv_traj", [_PTR] * 3 + [_INT] * 2 + [_PTR], _INT),
+    "heavy_tallies_launch": ("qv_shots", [_PTR] * 4 + [_INT] * 4 + [_PTR],
+                             _INT),
+    "fbt_cuda_error_string": ("apg_fused", [_INT], ctypes.c_char_p),
+}
 
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
@@ -95,18 +115,18 @@ def _nvcc() -> str:
                        "toolkit (nvcc on PATH or CUDA_HOME set)")
 
 
-def _build(paths: dict, csrc: Path) -> None:
+def _build(paths: dict) -> None:
     """Compile every source at once, each into its library and its log."""
-    build_dir = next(iter(paths.values())).parent
-    build_dir.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = {}
         try:
             for stem in paths:
-                so, src = os.path.join(tmp, stem + ".so"), csrc / f"{stem}.cu"
+                so = os.path.join(tmp, stem + ".so")
                 procs[stem] = subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-shared", "-o", so, str(src)],
+                    [nvcc, *NVCC_FLAGS, "-shared", "-o", so,
+                     str(CSRC / f"{stem}.cu")],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             logs = {stem: proc.communicate()[0] for stem, proc in procs.items()}
         finally:
@@ -125,50 +145,52 @@ def _build(paths: dict, csrc: Path) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def load(csrc: Path = CSRC,
-         build_dir: Path = BUILD_DIR) -> types.SimpleNamespace:
-    """Build (if needed) and load the kernel libraries of the sources in
-    ``csrc``; their launch functions, cached per process."""
-    paths = _lib_paths(csrc, build_dir)
+def load() -> types.SimpleNamespace:
+    """Build (if needed) and load the kernel libraries; the functions of
+    ``ENTRIES``, typed, cached per process."""
+    paths = _lib_paths()
     if not all(path.exists() for path in paths.values()):
-        _build(paths, csrc)
-    apg, qv, shots = (ctypes.CDLL(str(paths[stem])) for stem in (
-        "apg_fused", "qv_traj", "qv_shots"))
-    apg.apg_fused_launch.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_int] * 3 + [ctypes.POINTER(ApgSchedule), ctypes.c_void_p]
-    apg.apg_fused_launch.restype = ctypes.c_int
-    apg.cp_project_launch.argtypes = [ctypes.c_void_p] * 2 + [
-        ctypes.c_int] * 2 + [ctypes.c_void_p]
-    apg.cp_project_launch.restype = ctypes.c_int
-    qv.traj_probs_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    qv.traj_probs_launch.restype = ctypes.c_int
-    qv.ideal_probs_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
-    qv.ideal_probs_launch.restype = ctypes.c_int
-    shots.heavy_tallies_launch.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
-    shots.heavy_tallies_launch.restype = ctypes.c_int
-    apg.fbt_cuda_error_string.argtypes = [ctypes.c_int]
-    apg.fbt_cuda_error_string.restype = ctypes.c_char_p
-    return types.SimpleNamespace(
-        apg_fused_launch=apg.apg_fused_launch,
-        cp_project_launch=apg.cp_project_launch,
-        traj_probs_launch=qv.traj_probs_launch,
-        ideal_probs_launch=qv.ideal_probs_launch,
-        heavy_tallies_launch=shots.heavy_tallies_launch,
-        fbt_cuda_error_string=apg.fbt_cuda_error_string)
+        _build(paths)
+    libs = {stem: ctypes.CDLL(str(path)) for stem, path in paths.items()}
+    fns = {}
+    for name, (stem, argtypes, restype) in ENTRIES.items():
+        fn = fns[name] = getattr(libs[stem], name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return types.SimpleNamespace(**fns)
 
 
-def build_log(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> str:
+def build_log() -> str:
     """The compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills) from the build of the sources in ``csrc``, or '' if not built
-    there."""
+    spills) from the build of the sources, or '' if not built."""
     return "".join(f"== {stem}.cu\n{path.with_suffix('.log').read_text()}"
-                   for stem, path in _lib_paths(csrc, build_dir).items()
+                   for stem, path in _lib_paths().items()
                    if path.with_suffix(".log").exists())
 
 
-def error_string(code: int) -> str:
-    """``cudaGetErrorString`` of a code returned by a launch function."""
-    return load().fbt_cuda_error_string(code).decode()
+def check_operand(name: str, x: torch.Tensor, device: torch.device,
+                  dtype: torch.dtype, shape) -> None:
+    """Raise unless ``x`` is a CUDA tensor on ``device`` of ``dtype`` and
+    ``shape``: what every kernel asks of a tensor whose pointer it gets."""
+    if not x.is_cuda or x.device != device:
+        raise ValueError(f"{name} must be on {device} (a CUDA tensor), got "
+                         f"{x.device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the launch function ``entry`` of ``ENTRIES`` with ``args`` and
+    PyTorch's current stream, with ``device`` the current device. A CUDA
+    error it returns raises RuntimeError."""
+    lib = load()
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args,
+                                  torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        kernel = entry.removesuffix("_launch")
+        raise RuntimeError(
+            f"{kernel} kernel launch failed: CUDA error {err} "
+            f"({lib.fbt_cuda_error_string(err).decode()})")

@@ -404,13 +404,7 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
     for name, x, shape in (("ar", ar, (rows, d4)), ("ai", ai, (rows, d4)),
                            ("n", n, (b, rows)), ("rho0_r", rho0_r, (b, d2, d2)),
                            ("rho0_i", rho0_i, (b, d2, d2))):
-        if x.device != ar.device or not x.is_cuda:
-            raise ValueError(f"{name} must be on {ar.device}, got {x.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(x.shape)}")
+        kernels.check_operand(name, x, ar.device, torch.float32, shape)
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if d4 != d2 * d2:
@@ -428,23 +422,16 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
          sched.sweeps_rest[k]) = _phase(phase)
     out_r = torch.empty_like(rho0_r)
     out_i = torch.empty_like(rho0_i)
-    lib = kernels.load()
-    with torch.cuda.device(ar.device):
-        # the dim = 4 p pass reads A^T, coalesced over the rows; the dim = 2
-        # kernel reads only A and gets null pointers
-        at_ptrs = (None, None)
-        if dim == 4:
-            at = (ar.T.contiguous(), ai.T.contiguous())   # alive to the launch
-            at_ptrs = tuple(x.data_ptr() for x in at)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.apg_fused_launch(
-            ar.data_ptr(), ai.data_ptr(), *at_ptrs,
-            n.data_ptr(), rho0_r.data_ptr(), rho0_i.data_ptr(),
-            out_r.data_ptr(), out_i.data_ptr(), b, rows, dim,
-            ctypes.byref(sched), stream)
-    if err != 0:
-        raise RuntimeError(f"apg_fused kernel launch failed: CUDA error "
-                           f"{err} ({kernels.error_string(err)})")
+    # the dim = 4 p pass reads A^T, coalesced over the rows; the dim = 2
+    # kernel reads only A and gets null pointers
+    at_ptrs = (None, None)
+    if dim == 4:
+        at = (ar.T.contiguous(), ai.T.contiguous())   # alive to the launch
+        at_ptrs = tuple(x.data_ptr() for x in at)
+    kernels.launch("apg_fused_launch", ar.device, ar.data_ptr(), ai.data_ptr(),
+                   *at_ptrs, n.data_ptr(), rho0_r.data_ptr(),
+                   rho0_i.data_ptr(), out_r.data_ptr(), out_i.data_ptr(), b,
+                   rows, dim, ctypes.byref(sched))
     apg_fused.launches += 1
     return out_r, out_i
 

@@ -92,19 +92,13 @@ def cp_project_pallas(h: torch.Tensor, sweeps: int = 6, block: int = 128,
         return cp_project_reference(h, sweeps)
     if not h.is_cuda:
         raise ValueError(f"unsupported device {h.device}")
-    if h.dtype != torch.complex64:
-        raise TypeError(f"the CUDA kernel takes complex64, got {h.dtype}")
+    kernels.check_operand("h", h, h.device, torch.complex64,
+                          (h.shape[0], N, N))
     # the data of a conjugate view holds the values before the conjugation
     h = h.resolve_conj().contiguous()
     out = torch.empty_like(h)
-    lib = kernels.load()
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cp_project_launch(h.data_ptr(), out.data_ptr(), h.shape[0],
-                                    sweeps, stream)
-    if err != 0:
-        raise RuntimeError(f"cp_project kernel launch failed: CUDA error "
-                           f"{err} ({kernels.error_string(err)})")
+    kernels.launch("cp_project_launch", h.device, h.data_ptr(), out.data_ptr(),
+                   h.shape[0], sweeps)
     cp_project_pallas.launches += 1
     return out
 

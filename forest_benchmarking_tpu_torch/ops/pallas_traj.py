@@ -158,26 +158,6 @@ def _check_depth(depth: int) -> None:
                          f"{MAX_DEPTH}, got {depth}")
 
 
-def _check_cuda(name: str, x: torch.Tensor, device: torch.device,
-                dtype: torch.dtype, shape) -> None:
-    if not x.is_cuda or x.device != device:
-        raise ValueError(f"{name} must be a CUDA tensor on {device}, got "
-                         f"{x.device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(x.shape)}")
-
-
-def _launch(fn, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err} "
-                           f"({kernels.error_string(err)})")
-
-
 # ----------------------------------------------------------------------
 # Ideal output probabilities
 # ----------------------------------------------------------------------
@@ -213,8 +193,9 @@ def _ideal_kernel_inputs(perms: torch.Tensor, gates: torch.Tensor,
     _check_depth(depth)
     c, slots = perms.shape[0], depth // 2
     dev = gates.device
-    _check_cuda("gates", gates, dev, torch.complex64, (c, depth, slots, 4, 4))
-    _check_cuda("perms", perms, dev, torch.int64, (c, depth, depth))
+    kernels.check_operand("gates", gates, dev, torch.complex64,
+                          (c, depth, slots, 4, 4))
+    kernels.check_operand("perms", perms, dev, torch.int64, (c, depth, depth))
     perms, gates = _laid_out(perms), _laid_out(gates)
     if gates.data_ptr() % 16:
         raise ValueError("gates must be 16-byte aligned: the kernel reads "
@@ -228,8 +209,8 @@ def _ideal_launch(perms: torch.Tensor, gates: torch.Tensor,
     c = perms.shape[0]
     out = torch.empty((c, 2 ** depth), dtype=torch.float32,
                       device=perms.device)
-    _launch(kernels.load().ideal_probs_launch, perms.device,
-            perms.data_ptr(), gates.data_ptr(), out.data_ptr(), c, depth)
+    kernels.launch("ideal_probs_launch", perms.device, perms.data_ptr(),
+                   gates.data_ptr(), out.data_ptr(), c, depth)
     ideal_probs.launches += 1
     return out
 
@@ -322,9 +303,12 @@ def _traj_kernel_inputs(perms: torch.Tensor, gates: torch.Tensor,
     if not 1 <= n_kraus <= MAX_KRAUS:
         raise ValueError(f"the trajectory kernel takes 1 to {MAX_KRAUS} "
                          f"Kraus operators, got {n_kraus}")
-    _check_cuda("gates", gates, dev, torch.complex64, (c, depth, slots, 4, 4))
-    _check_cuda("kraus", kraus, dev, torch.complex64, (n_kraus, 4, 4))
-    _check_cuda("uniforms", uniforms, dev, torch.float32, (c, depth, slots, t))
+    kernels.check_operand("gates", gates, dev, torch.complex64,
+                          (c, depth, slots, 4, 4))
+    kernels.check_operand("kraus", kraus, dev, torch.complex64,
+                          (n_kraus, 4, 4))
+    kernels.check_operand("uniforms", uniforms, dev, torch.float32,
+                          (c, depth, slots, t))
     if perms.device != dev or perms.shape != (c, depth, depth):
         raise ValueError(f"perms must be (C, depth, depth) on {dev}")
     hmaps = _boundary_maps(perms, depth).to(torch.int32).contiguous()
@@ -338,9 +322,9 @@ def _traj_launch(hmaps: torch.Tensor, gates: torch.Tensor,
     c, t = hmaps.shape[0], uniforms.shape[-1]
     out = torch.empty((c, 2 ** depth, t), dtype=torch.float32,
                       device=hmaps.device)
-    _launch(kernels.load().traj_probs_launch, hmaps.device, hmaps.data_ptr(),
-            gates.data_ptr(), kraus.data_ptr(), uniforms.data_ptr(),
-            out.data_ptr(), c, depth, kraus.shape[0], t)
+    kernels.launch("traj_probs_launch", hmaps.device, hmaps.data_ptr(),
+                   gates.data_ptr(), kraus.data_ptr(), uniforms.data_ptr(),
+                   out.data_ptr(), c, depth, kraus.shape[0], t)
     traj_probs.launches += 1
     return out
 
@@ -419,9 +403,9 @@ def _shots_launch(traj: torch.Tensor, heavy: torch.Tensor,
     blocks' tickets and the flag (1 where no row fails a check)."""
     c, n, t = traj.shape
     out = torch.zeros(c + 4, dtype=torch.int64, device=traj.device)
-    _launch(kernels.load().heavy_tallies_launch, traj.device,
-            traj.data_ptr(), q.data_ptr(), heavy.data_ptr(), out.data_ptr(),
-            c, n.bit_length() - 1, t, q.element_size())
+    kernels.launch("heavy_tallies_launch", traj.device, traj.data_ptr(),
+                   q.data_ptr(), heavy.data_ptr(), out.data_ptr(), c,
+                   n.bit_length() - 1, t, q.element_size())
     heavy_tallies.launches += 1
     return out
 
@@ -443,11 +427,11 @@ def heavy_tallies_kernel(traj: torch.Tensor, heavy: torch.Tensor,
         raise ValueError(f"traj's outputs must be 2^depth, got {n}")
     _check_depth(depth)
     dev = traj.device
-    _check_cuda("traj", traj, dev, torch.float32, (c, n, t))
-    _check_cuda("heavy", heavy, dev, torch.bool, (c, n))
+    kernels.check_operand("traj", traj, dev, torch.float32, (c, n, t))
+    kernels.check_operand("heavy", heavy, dev, torch.bool, (c, n))
     if q.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"q must be float32 or float64, got {q.dtype}")
-    _check_cuda("q", q, dev, q.dtype, (c * t, n))
+    kernels.check_operand("q", q, dev, q.dtype, (c * t, n))
     traj, heavy, q = traj.contiguous(), heavy.contiguous(), q.contiguous()
     if q.data_ptr() % 16:
         raise ValueError("q must be 16-byte aligned: the kernel reads it in "

@@ -400,21 +400,6 @@ def test_warp_kernels_pair_rules_match_the_tables():
             x, y = next_seat(x), next_seat(y)
 
 
-def test_barrier_variants_differ_in_the_dykstra_barrier_only():
-    """scripts/apg_barrier_ab.py builds the kernel source as it is and with
-    one line changed: the Dykstra barrier of the dim = 4 kernel."""
-    ab = _script(ROOT / "scripts" / "apg_barrier_ab.py")
-    src = (kernels.CSRC / "apg_fused.cu").read_text()
-    variants = ab.variant_sources(src)
-    assert variants["group"] == src
-    changed = [(x, y) for x, y in zip(src.splitlines(),
-                                      variants["block"].splitlines())
-               if x != y]
-    assert changed == [(f"  {ab.GROUP_LINE}", f"  {ab.BLOCK_LINE}")]
-    with pytest.raises(ValueError, match="once"):
-        ab.variant_sources(variants["block"])
-
-
 @pytest.mark.parametrize("dim", [2, 4])
 def test_jax_ordered_calls_give_the_keyword_result(dim):
     """``block`` and ``sublanes`` sit at the JAX package's positions and
