@@ -44,8 +44,8 @@ Phases, each of which must pass:
    block, the bytes of A it reads from L2 per solve
    (``apg_fused_l2_bytes_per_solve``) and the L2 rate they imply, and the
    one-problem-per-block design's times for comparison (text). Then the
-   split of the kernel's time: the kernel timed on a schedule of 31 passes
-   over A and no projection, and on two of 20 Dykstra iterations (1 and 3
+   split of the kernel's time: the kernel timed on a schedule of 10 outer
+   steps and no projection (21 passes over A at dim = 4), and on two of 20 Dykstra iterations (1 and 3
    sweeps) and one pass, give the time of a pass, of an iteration and of a
    further sweep, and so each schedule's time in passes and projections;
 6. the quantum-volume kernels against their plain versions on the same
@@ -3406,7 +3406,9 @@ def main() -> int:
     # projection) and two of projections alone (one pass, the first cost)
     mu = configs["headline"]["mu"]
     split = {}
-    for key, cfg in (("passes", dict(phases=((10, 0, 1),), init_iters=0,
+    pass_phases = ((10, 0, 1),)
+    n_passes = lanes_apg._a_passes(pass_phases, 4)
+    for key, cfg in (("passes", dict(phases=pass_phases, init_iters=0,
                                      final_iters=0)),
                      ("dykstra1", dict(phases=(), init_iters=0,
                                        final_iters=20, final_sweeps=1)),
@@ -3414,7 +3416,7 @@ def main() -> int:
                                        final_iters=20, final_sweeps=3))):
         split[key], _ = cuda_ms(lambda: lanes_apg.apg_fused_kernel(
             in32.ar, in32.ai, n, *rho0, dim=4, mu=mu, **cfg))
-    ms_pass = split["passes"] / 31
+    ms_pass = split["passes"] / n_passes
     ms_iter = (split["dykstra1"] - ms_pass) / 20
     ms_sweep = (split["dykstra3"] - split["dykstra1"]) / 40
     a_bytes = 2 * a_np.shape[0] * 256 * 4
@@ -3422,12 +3424,12 @@ def main() -> int:
           f"({BATCH * a_bytes / PROBLEMS_PER_BLOCK_2Q / ms_pass / 1e9:.3f} "
           f"TB/s of A from L2), "
           f"one Dykstra iteration of 1 sweep {ms_iter:.3f} ms, each further "
-          f"sweep {ms_sweep:.3f} ms (schedules of 31 passes: "
+          f"sweep {ms_sweep:.3f} ms (schedules of {n_passes} passes: "
           f"{split['passes']:.3f} ms; 20 iterations at 1 and 3 sweeps: "
           f"{split['dykstra1']:.3f} / {split['dykstra3']:.3f} ms)")
     for name in SCHEDULES:
         cfg = configs[name]
-        passes = lanes_apg._a_passes(cfg["phases"])
+        passes = lanes_apg._a_passes(cfg["phases"], 4)
         steps = [(cfg["init_iters"], cfg["init_sweeps"]),
                  (cfg["final_iters"], cfg["final_sweeps"])] + [
                      (outer * ld, sw) for outer, ld, sw in cfg["phases"]]

@@ -38,28 +38,38 @@
 // steps; Dykstra's steps wait on the group's named barrier, the passes over
 // A on __syncthreads. The elementwise APG/Dykstra state (est, prev, the two
 // Dykstra corrections, the Dykstra iterate) lives in the thread's registers;
-// the matrices that threads exchange (operand, H, HV, M, V) and the counts
-// and eta vectors live in shared memory. The TPU kernel's pair-layout
-// permutations, fences and vreg tiling are not carried: a Jacobi round
-// rotates the pairs (p, q) of `_round_robin_pairs` in place.
+// the matrices that threads exchange (operand, H, HV, M, V) and three
+// vectors of rows x P floats live in shared memory: the counts, and the
+// unclamped products Re(A x) of est and of prev, the second of which holds
+// eta between the combination at y and the candidate's cost pass. At 1080
+// rows that is 51,840 B beside the 83.7 KB of matrices; the 227 KB a block
+// may have hold A-matrices of up to 3,098 rows, and a larger one fails the
+// launch with a CUDA error. The TPU kernel's pair-layout permutations,
+// fences and vreg tiling are not carried: a Jacobi round rotates the pairs
+// (p, q) of `_round_robin_pairs` in place.
 //
 // What bounds it on an H100:
-// - D = 4: L2 bytes of A. Both A contractions are computed here, by hand,
-//   in FP32 FMAs. The two f32 planes of A (1080 x 256) are 2.2 MB, and the
-//   wrapper also passes A^T (256 x 1080, 2.2 MB more); both are shared by
-//   all blocks and resident in the 50 MB L2. A block reads one of them on
-//   each pass: 1 pass for the first cost plus 3 per outer step (p and
-//   A^T eta at y, p for the cost of the candidate), 16 passes on the
-//   headline schedule and 133 on parity. Every element a block loads serves
-//   all P of its problems, so a solve moves 16 x 2.2 MB / P (headline) from
-//   L2. The p pass (a_pass_2q) reads A^T[k, r] coalesced over the rows r
-//   and the P operands x_g[k] as one broadcast shared-memory load; the
-//   A^T eta pass (grad_2q) reads A[r, j] coalesced over the columns j and
-//   the P values eta_g[r] as one broadcast load. Neither order of summation
-//   depends on which problems share the block, so a problem's estimate does
-//   not depend on its block-mates. Then the serial Jacobi rounds, n - 1 per
-//   sweep, each three steps (coefficients, column rotations, row rotations)
-//   with a barrier between them.
+// - D = 4: the passes over A, by the instructions they issue and their
+//   latency more than by their L2 bytes (sharing A's tiles across a cluster
+//   cut those bytes and not the time). Both A contractions are computed
+//   here, by hand, in FP32 FMAs. The two f32 planes of A (1080 x 256) are
+//   2.2 MB, and the wrapper also passes A^T (256 x 1080, 2.2 MB more); both
+//   are shared by all blocks and resident in the 50 MB L2. A block reads one
+//   of them on each pass: 1 pass for the first cost plus 2 per outer step
+//   (A^T eta at y, p for the cost of the candidate), 11 passes on the
+//   headline schedule and 89 on parity. p at y takes no pass: Re(A .) is
+//   linear, so Re(A y) = (1 + beta) Re(A est) - beta Re(A prev), and each
+//   cost pass keeps its products unclamped for that (eta_at_y). Every
+//   element a block loads serves all P of its problems, so a solve moves
+//   11 x 2.2 MB / P (headline) from L2. The p pass (a_pass_2q) reads A^T[k, r]
+//   coalesced over the rows r and the P operands x_g[k] as one broadcast
+//   shared-memory load; the A^T eta pass (grad_2q) reads A[r, j] coalesced
+//   over the columns j and the P values eta_g[r] as one broadcast load.
+//   Neither order of summation, nor the combination at y, depends on which
+//   problems share the block, so a problem's estimate does not depend on its
+//   block-mates. Then the serial Jacobi rounds, n - 1 per sweep, each three
+//   steps (coefficients, column rotations, row rotations) with a barrier
+//   between them.
 // - D = 2 (apg_fused_1q_kernel): one problem per quad of lanes, lane j
 //   holding column j of each matrix in registers, eight problems a warp;
 //   A is 36 x 16 (4.6 KB in two planes), staged in shared memory once per
@@ -409,8 +419,9 @@ __device__ __forceinline__ void store_p(float* dst, const float (&v)[P]) {
 }
 
 // The shared memory of a D = 4 block of P problems. The block's counts and
-// eta follow it in the dynamic allocation, rows x P floats each, laid out
-// [r][g] so that one load gives row r of all P problems.
+// the products of est and of prev follow it in the dynamic allocation, rows
+// x P floats each, laid out [r][g] so that one load gives row r of all P
+// problems.
 template <int P>
 struct Shared2q {
   static constexpr int NN = Dims<4>::NN;
@@ -419,6 +430,7 @@ struct Shared2q {
   float xr[NN * P], xi[NN * P];  // operand x of the p pass, [k][g]
   float part[2 * P * P * NN];  // A^T eta partial sums, [g'][re, im][g][j]
   float red[WARPS * P];        // per-warp cost sums, [w][g]
+  alignas(16) float beta[P];   // this outer step's beta of each problem
   Pairs<4> pairs;
 };
 
@@ -428,19 +440,19 @@ __host__ __device__ constexpr size_t shared2q_head() {
   return (sizeof(Shared2q<P>) + 15) & ~static_cast<size_t>(15);
 }
 
-// p_g[r] = max(Re(A x_g)[r], EPS_P) for the block's P problems, x_g in
-// sh.xr/xi (written and synced by the caller). A half-warp takes 16
-// consecutive rows r, one a lane, and one half of k: it loads A^T[k, r]
-// (coalesced over the rows) and x_g[k] of all P problems (one broadcast
-// load a plane), and keeps P sums; the halves join by a shuffle. With `cost`
-// false it stores eta_g[r] = n_g[r] / p_g[r]; with `cost` true it returns
-// -sum_r n_g[r] log p_g[r] of this thread's problem g, the same value in each
-// of the group's threads (per-thread sums over its rows, a shuffle tree in
-// the warp, then the warps in order). Ends with a __syncthreads.
+// The cost -sum_r n_g[r] log p_g[r], p_g[r] = max(Re(A x_g)[r], EPS_P), of
+// the block's P problems, x_g in sh.xr/xi (written and synced by the
+// caller); returns problem g's in each thread of its group (per-thread sums
+// over its rows, a shuffle tree in the warp, then the warps in order). A
+// half-warp takes 16 consecutive rows r, one a lane, and one half of k: it
+// loads A^T[k, r] (coalesced over the rows) and x_g[k] of all P problems
+// (one broadcast load a plane), and keeps P sums; the halves join by a
+// shuffle. The unclamped sums Re(A x_g)[r] go to prod, [r][g], for
+// eta_at_y. Ends with a __syncthreads.
 template <int P>
 __device__ float a_pass_2q(Shared2q<P>& sh, const float* __restrict__ at_r,
                            const float* __restrict__ at_i, const float* sn,
-                           float* seta, int rows, int t, bool cost) {
+                           float* prod, int rows, int t) {
   constexpr int NN = Dims<4>::NN, KH = NN / 2, NW = Shared2q<P>::WARPS;
   const int w = t >> 5, lane = t & 31, half = lane >> 4;
   const float* xr = sh.xr + half * KH * P;
@@ -472,22 +484,13 @@ __device__ float a_pass_2q(Shared2q<P>& sh, const float* __restrict__ at_r,
     for (int g = 0; g < P; ++g)
       acc[g] += __shfl_down_sync(0xffffffffu, acc[g], 16);
     if (half == 0 && r < rows) {
-      float nv[P], e[P];
+      float nv[P];
       load_p<P>(sn + r * P, nv);
 #pragma unroll
-      for (int g = 0; g < P; ++g) {
-        const float p = fmaxf(acc[g], EPS_P);
-        if (cost)
-          part[g] = fmaf(nv[g], logf(p), part[g]);
-        else
-          e[g] = nv[g] / p;
-      }
-      if (!cost) store_p<P>(seta + r * P, e);
+      for (int g = 0; g < P; ++g)
+        part[g] = fmaf(nv[g], logf(fmaxf(acc[g], EPS_P)), part[g]);
+      store_p<P>(prod + r * P, acc);
     }
-  }
-  if (!cost) {
-    __syncthreads();
-    return 0.f;
   }
 #pragma unroll
   for (int g = 0; g < P; ++g) {
@@ -506,16 +509,46 @@ __device__ float a_pass_2q(Shared2q<P>& sh, const float* __restrict__ at_r,
   return -total;
 }
 
-// The cost of the matrix whose entry l of problem g is (xr, xi).
+// The cost of the matrix whose entry l of problem g is (xr, xi); its
+// products go to prod.
 template <int P>
 __device__ float cost_2q(Shared2q<P>& sh, const float* __restrict__ at_r,
                          const float* __restrict__ at_i, const float* sn,
-                         int rows, int t, float xr, float xi) {
+                         float* prod, int rows, int t, float xr, float xi) {
   const int g = t / Dims<4>::NN, l = t % Dims<4>::NN;
   sh.xr[l * P + g] = xr;
   sh.xi[l * P + g] = xi;
   __syncthreads();
-  return a_pass_2q<P>(sh, at_r, at_i, sn, nullptr, rows, t, true);
+  return a_pass_2q<P>(sh, at_r, at_i, sn, prod, rows, t);
+}
+
+// eta_g[r] = n_g[r] / max(p_g[r], EPS_P) at y = est + beta_g (est - prev),
+// with no pass over A: p_g = (1 + beta_g) Re(A est) - beta_g Re(A prev),
+// from the unclamped products that the cost passes of est and prev stored
+// (p_est, p_prev). eta replaces p_prev. beta_g is problem g's own (restarts
+// are per problem), in sh.beta (written and synced by the caller). Thread t
+// takes rows t, t + THREADS P, ..., all P problems of a row in one load a
+// vector. With beta_g = 0 (the first step, and every step after a restart,
+// where t = 1) p is p_est exactly: fmaf(1, x, -(0 y)) = x for finite y, and
+// p_prev starts zeroed, so eta is what a pass at y = est would give. Ends
+// with a __syncthreads.
+template <int P>
+__device__ void eta_at_y(const Shared2q<P>& sh, const float* sn,
+                         const float* p_est, float* p_prev, int rows, int t) {
+  float beta[P];
+  load_p<P>(sh.beta, beta);
+  for (int r = t; r < rows; r += THREADS * P) {
+    float nv[P], pe[P], pp[P], e[P];
+    load_p<P>(sn + r * P, nv);
+    load_p<P>(p_est + r * P, pe);
+    load_p<P>(p_prev + r * P, pp);
+#pragma unroll
+    for (int g = 0; g < P; ++g)
+      e[g] = nv[g] / fmaxf(fmaf(1.f + beta[g], pe[g], -(beta[g] * pp[g])),
+                           EPS_P);
+    store_p<P>(p_prev + r * P, e);
+  }
+  __syncthreads();
 }
 
 // Gradient entry j of this thread's problem g: g_r = -sum_r A_r[r, j] eta_r,
@@ -576,7 +609,10 @@ __global__ void __launch_bounds__(THREADS * P, 1)
   extern __shared__ __align__(16) unsigned char smem2q[];
   Shared2q<P>& sh = *reinterpret_cast<Shared2q<P>*>(smem2q);
   float* sn = reinterpret_cast<float*>(smem2q + shared2q_head<P>());
-  float* seta = sn + static_cast<size_t>(rows) * P;  // n / p, [r][g]
+  // Re(A est) and Re(A prev), unclamped, [r][g]; between eta_at_y and the
+  // candidate's cost pass the second holds eta = n / p at y
+  float* p_est = sn + static_cast<size_t>(rows) * P;
+  float* p_prev = p_est + static_cast<size_t>(rows) * P;
   const int t = threadIdx.x, g = t / NN, l = t % NN;
   const size_t first = static_cast<size_t>(blockIdx.x) * P;
   const size_t b = first + g;
@@ -590,7 +626,9 @@ __global__ void __launch_bounds__(THREADS * P, 1)
   for (int k = t; k < P * rows; k += THREADS * P) {
     const int q = k / rows;
     const size_t idx = first * rows + k;
-    sn[(k - q * rows) * P + q] = idx < n_end ? n[idx] : 0.f;
+    const int at = (k - q * rows) * P + q;
+    sn[at] = idx < n_end ? n[idx] : 0.f;
+    p_prev[at] = 0.f;  // read, times beta = 0, by the first step
   }
   s.e.vr[l] = (l >> 4) == (l & 15) ? 1.f : 0.f;
   s.e.vi[l] = 0.f;
@@ -606,25 +644,26 @@ __global__ void __launch_bounds__(THREADS * P, 1)
 
   float prev_r = est_r, prev_i = est_i;
   float tk = 1.f;
-  float old_cost = cost_2q<P>(sh, at_r, at_i, sn, rows, t, est_r, est_i);
+  float old_cost =
+      cost_2q<P>(sh, at_r, at_i, sn, p_est, rows, t, est_r, est_i);
   for (int ph = 0; ph < sch.n_phases; ++ph) {
     for (int it = 0; it < sch.outer[ph]; ++it) {
       const float t_next = (1.f + sqrtf(1.f + 4.f * tk * tk)) / 2.f;
       const float beta = (tk - 1.f) / t_next;
       const float y_r = est_r + beta * (est_r - prev_r);
       const float y_i = est_i + beta * (est_i - prev_i);
-      sh.xr[l * P + g] = y_r;
-      sh.xi[l * P + g] = y_i;
+      if (l == 0) sh.beta[g] = beta;
       __syncthreads();
-      a_pass_2q<P>(sh, at_r, at_i, sn, seta, rows, t, false);
+      eta_at_y<P>(sh, sn, p_est, p_prev, rows, t);
       float g_r, g_i;
-      grad_2q<P>(sh, a_r, a_i, seta, rows, t, g_r, g_i);
+      grad_2q<P>(sh, a_r, a_i, p_prev, rows, t, g_r, g_i);
       float z_r = y_r - sch.inv_mu * g_r;
       float z_i = y_i - sch.inv_mu * g_i;
       dykstra<4, SPLIT>(s, sh.pairs, l, sch.dykstra[ph], sch.sweeps[ph],
                         rest.sweeps_rest[ph], z_r, z_i, gsync);
-      const float new_cost = cost_2q<P>(sh, at_r, at_i, sn, rows, t, z_r,
-                                        z_i);
+      // the candidate's products replace eta, which grad_2q has read
+      const float new_cost =
+          cost_2q<P>(sh, at_r, at_i, sn, p_prev, rows, t, z_r, z_i);
       // O'Donoghue-Candes function restart
       tk = new_cost > old_cost ? 1.f : t_next;
       prev_r = est_r;
@@ -632,6 +671,10 @@ __global__ void __launch_bounds__(THREADS * P, 1)
       est_r = z_r;
       est_i = z_i;
       old_cost = new_cost;
+      // and so do their products, uniformly across the block
+      float* const p_cand = p_prev;
+      p_prev = p_est;
+      p_est = p_cand;
     }
   }
   dykstra<4, SPLIT>(s, sh.pairs, l, sch.final_iters, sch.final_sweeps,
@@ -1235,8 +1278,9 @@ cudaError_t launch_apg(const float* a_r, const float* a_i, const float* at_r,
   if (dim == 4) {
     // at_r/at_i: A^T, (256, rows) planes, read by the p pass
     constexpr int P = PROBLEMS_2Q;
+    // the counts and the products of est and of prev, rows x P floats each
     const size_t dyn = shared2q_head<P>() +
-                       2 * P * static_cast<size_t>(rows) * sizeof(float);
+                       3 * P * static_cast<size_t>(rows) * sizeof(float);
     err = cudaFuncSetAttribute(apg_fused_kernel<P, SPLIT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(dyn));

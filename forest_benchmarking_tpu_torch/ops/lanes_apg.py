@@ -379,6 +379,27 @@ def apg_fused_reference(ar, ai, n, rho0_r, rho0_i, *, dim: int,
 # The CUDA kernel and the wrapper
 # ----------------------------------------------------------------------
 
+def kernel_schedule(dim: int,
+                    phases: Sequence[Tuple[int, int, int]] = PARITY_PHASES,
+                    init_iters: int = 8, init_sweeps: int = 3,
+                    final_iters: int = 20, final_sweeps: int = 1,
+                    final_sweeps_rest: Optional[int] = None,
+                    mu: Optional[float] = None) -> kernels.ApgSchedule:
+    """The schedule as ``csrc/apg_fused.cu`` takes it (``struct
+    ApgSchedule``), from :func:`apg_fused_reference`'s arguments."""
+    if mu is None:
+        mu = 3.0 / (2 * dim ** 2)
+    sched = kernels.ApgSchedule(
+        n_phases=len(phases), init_iters=init_iters, init_sweeps=init_sweeps,
+        final_iters=final_iters, final_sweeps=final_sweeps,
+        final_sweeps_rest=(final_sweeps if final_sweeps_rest is None
+                           else final_sweeps_rest), inv_mu=1.0 / mu)
+    for k, phase in enumerate(phases):
+        (sched.outer[k], sched.dykstra[k], sched.sweeps[k],
+         sched.sweeps_rest[k]) = _phase(phase)
+    return sched
+
+
 def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
                      phases: Sequence[Tuple[int, int, int]] = PARITY_PHASES,
                      init_iters: int = 8, init_sweeps: int = 3,
@@ -410,16 +431,8 @@ def apg_fused_kernel(ar, ai, n, rho0_r, rho0_i, *, dim: int,
     if d4 != d2 * d2:
         raise ValueError(f"A must have {d2 * d2} columns for dim={dim}, "
                          f"got {d4}")
-    if mu is None:
-        mu = 3.0 / (2 * dim ** 2)
-    sched = kernels.ApgSchedule(
-        n_phases=len(phases), init_iters=init_iters, init_sweeps=init_sweeps,
-        final_iters=final_iters, final_sweeps=final_sweeps,
-        final_sweeps_rest=(final_sweeps if final_sweeps_rest is None
-                           else final_sweeps_rest), inv_mu=1.0 / mu)
-    for k, phase in enumerate(phases):
-        (sched.outer[k], sched.dykstra[k], sched.sweeps[k],
-         sched.sweeps_rest[k]) = _phase(phase)
+    sched = kernel_schedule(dim, phases, init_iters, init_sweeps,
+                            final_iters, final_sweeps, final_sweeps_rest, mu)
     out_r = torch.empty_like(rho0_r)
     out_i = torch.empty_like(rho0_i)
     # the dim = 4 p pass reads A^T, coalesced over the rows; the dim = 2
@@ -485,9 +498,12 @@ def apg_fused_flops_per_solve(rows: int, dim: int = 4,
     """Floating-point operations of one fused solve as the CUDA kernel
     computes it (n = dim^2, R = ``rows``):
 
-    - passes over A: 1 for the first cost plus 3 per outer step (p = Re(A x)
-      and A^T eta at y, p for the candidate's cost), 4 R n^2 each (two real
-      multiply-adds per complex entry);
+    - passes over A (:func:`_a_passes`), 4 R n^2 each (two real
+      multiply-adds per complex entry): at dim = 4, 1 for the first cost
+      plus 2 per outer step (A^T eta at y, p = Re(A x) for the candidate's
+      cost; p at y is combined from the products of the last two cost
+      passes); at dim = 2, 1 plus 3 per outer step (p and A^T eta at y, p
+      for the candidate's cost);
     - per Dykstra iteration: hermitianize (2 n^2), the basis rotation
       M = V^dag H V (two complex n x n products, 8 n^3 each), s Jacobi
       sweeps (n - 1 rounds of rotations of M's columns and rows and V's
@@ -510,7 +526,7 @@ def apg_fused_flops_per_solve(rows: int, dim: int = 4,
             return 0.0
         return per_dykstra(sweeps) + (iters - 1) * per_dykstra(sweeps_rest)
 
-    total = _a_passes(phases) * per_pass
+    total = _a_passes(phases, dim) * per_pass
     total += projection(init_iters, init_sweeps, init_sweeps)
     total += projection(final_iters, final_sweeps,
                         final_sweeps if final_sweeps_rest is None
@@ -527,17 +543,20 @@ def apg_fused_l2_bytes_per_solve(rows: int, dim: int = 4,
     """Bytes the CUDA kernel reads from L2 for A per solve: every pass reads
     one f32 copy of the two planes of A (A or A^T, 2 x R x dim^4 x 4 bytes),
     once for all ``problems_per_block`` problems of a block. The passes are
-    those :func:`apg_fused_flops_per_solve` counts; the other schedule
-    arguments do not change the count and are accepted so that a schedule
-    dict can be passed whole."""
+    those :func:`apg_fused_flops_per_solve` counts (:func:`_a_passes`: 11
+    on the headline schedule and 89 on ``PARITY_TUNED_2Q`` at dim = 4); the
+    other schedule arguments do not change the count and are accepted so
+    that a schedule dict can be passed whole."""
     n = dim * dim
-    return _a_passes(phases) * 2.0 * rows * n * n * 4 / problems_per_block
+    return _a_passes(phases, dim) * 2.0 * rows * n * n * 4 / problems_per_block
 
 
-def _a_passes(phases) -> int:
-    """Passes over A of one solve: 1 for the first cost plus 3 per outer
-    step (p and A^T eta at y, p for the candidate's cost)."""
-    return 1 + 3 * sum(p[0] for p in phases)
+def _a_passes(phases, dim: int) -> int:
+    """Passes over A of one solve by the kernel of ``dim``: 1 for the first
+    cost, then per outer step A^T eta at y and p for the candidate's cost;
+    the dim = 2 kernel makes a third, p at y, which the dim = 4 kernel
+    combines from the products of the last two cost passes."""
+    return 1 + (2 if dim == 4 else 3) * sum(p[0] for p in phases)
 
 
 PINV_CACHE_SIZE = 4   # A-matrices whose pinv apg_fused keeps

@@ -1,11 +1,14 @@
-// cuda_runtime.h for a host build of csrc/qv_traj.cu and csrc/qv_shots.cu:
-// the CUDA features the quantum-volume kernels use, emulated on the CPU.
+// cuda_runtime.h for a host build of csrc/qv_traj.cu, csrc/qv_shots.cu and
+// csrc/apg_fused.cu: the CUDA features the kernels use, emulated on the CPU.
 // Every thread of a block is a std::thread; a warp's lanes meet at a barrier
-// for each shuffle and __syncwarp, and a block's threads for __syncthreads.
+// for each shuffle and __syncwarp, a block's threads for __syncthreads, and
+// the threads of a named barrier (`bar.sync id, n`, which the tests route
+// to emu::bar_sync) at a barrier of n made on first use. Blocks run one
+// after another, so a static __shared__ array is the running block's.
 // Shared memory starts out as garbage, as on the card. Only full-warp masks
-// are emulated. tests/test_torch_qv_kernels.py and tests/test_torch_qv_shots.py
-// build the kernel sources against it with g++ (C++20) and run them against
-// the plain versions.
+// are emulated. tests/test_torch_qv_kernels.py, tests/test_torch_qv_shots.py
+// and tests/test_torch_apg_host.py build the kernel sources against it with
+// g++ (C++20) and run them against the plain versions.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -13,7 +16,9 @@
 #include <cstdint>
 #include <cstring>
 #include <functional>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -21,9 +26,11 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 #define __align__(x) alignas(x)
+#define __constant__
+#define __shared__ static
 
 using cudaError_t = int;
 constexpr int cudaSuccess = 0;
@@ -35,7 +42,12 @@ inline cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
 
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 struct double2 { double x, y; };
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
 
@@ -48,6 +60,8 @@ struct Block {
   std::barrier<>* all;
   std::vector<std::unique_ptr<Warp>> warps;
   std::vector<unsigned char> smem;
+  std::mutex named_lock;
+  std::map<int, std::unique_ptr<std::barrier<>>> named;
 };
 inline thread_local dim3 tid, bid;
 inline thread_local Block* blk;
@@ -64,6 +78,17 @@ template <class T> T xchg(T v, int src) {
   T out; std::memcpy(&out, &got, 4);
   return out;
 }
+// bar.sync id, n: the n threads that name barrier id meet there
+inline void bar_sync(int id, int n) {
+  std::barrier<>* bar;
+  {
+    std::lock_guard<std::mutex> hold(blk->named_lock);
+    auto& slot = blk->named[id];
+    if (!slot) slot.reset(new std::barrier<>(n));
+    bar = slot.get();
+  }
+  bar->arrive_and_wait();
+}
 template <class K, class... A>
 void launch(K kernel, int grid, int threads, size_t smem, void*, A... args) {
   for (int b = 0; b < grid; ++b) {
@@ -71,7 +96,7 @@ void launch(K kernel, int grid, int threads, size_t smem, void*, A... args) {
     std::barrier<> all(threads);
     block.all = &all;
     for (int w = 0; w < threads / 32; ++w) block.warps.emplace_back(new Warp);
-    block.smem.assign(smem + 16, 0xAB);  // garbage, as on the card
+    block.smem.assign(smem + 16, 0xFF);  // garbage (NaN floats), as on the card
     std::vector<std::thread> ts;
     for (int t = 0; t < threads; ++t)
       ts.emplace_back([&, t] {
@@ -94,8 +119,11 @@ inline void __syncthreads() { emu::blk->all->arrive_and_wait(); }
 template <class T> T __shfl_xor_sync(unsigned, T v, int m) {
   return emu::xchg(v, emu::lane() ^ m);
 }
-template <class T> T __shfl_sync(unsigned, T v, int s) {
-  return emu::xchg(v, s);
+template <class T> T __shfl_sync(unsigned, T v, int s, int width = 32) {
+  return emu::xchg(v, (emu::lane() & ~(width - 1)) + (s & (width - 1)));
+}
+template <class T> T __shfl_down_sync(unsigned, T v, int d) {
+  int l = emu::lane(); return emu::xchg(v, l + d < 32 ? l + d : l);
 }
 template <class T> T __shfl_up_sync(unsigned, T v, int d) {
   int l = emu::lane(); return emu::xchg(v, l >= d ? l - d : l);

@@ -308,28 +308,38 @@ def test_apg_fused_1q_matches_jax(fused_1q_case):
     assert torch.equal(via_route, got)
 
 
-@pytest.mark.parametrize("schedule,passes", [("HEADLINE_TUNED_2Q", 16),
-                                             ("PARITY_TUNED_2Q", 133)])
-def test_flop_count_passes_over_a(schedule, passes):
-    """The kernel reads A once for the first cost and three times per outer
-    step; each pass is 4 R n^2 operations."""
-    cfg = getattr(lanes_apg, schedule)
-    rows = 1080
-    a_part = (lanes_apg.apg_fused_flops_per_solve(rows, **cfg)
-              - lanes_apg.apg_fused_flops_per_solve(0, **cfg))
-    assert a_part == passes * 4 * rows * 256
+# (schedule, dim, rows of A, passes over A): at dim = 4 1 + 2 a step (5
+# and 44 steps), at dim = 2 1 + 3 a step (the default schedule's 50)
+PASSES = [("HEADLINE_TUNED_2Q", 4, 1080, 11), ("PARITY_TUNED_2Q", 4, 1080, 89),
+          ("PARITY_PHASES", 2, 36, 151)]
+
+
+def _schedule(name):
+    got = getattr(lanes_apg, name)
+    return got if isinstance(got, dict) else dict(phases=got)
+
+
+@pytest.mark.parametrize("schedule,dim,rows,passes", PASSES)
+def test_flop_count_passes_over_a(schedule, dim, rows, passes):
+    """The dim = 4 kernel reads A once for the first cost and twice per outer
+    step (p at y is combined from the last two cost passes' products); the
+    dim = 2 kernel three times per step. Each pass is 4 R n^2 operations."""
+    cfg = _schedule(schedule)
+    a_part = (lanes_apg.apg_fused_flops_per_solve(rows, dim, **cfg)
+              - lanes_apg.apg_fused_flops_per_solve(0, dim, **cfg))
+    assert a_part == passes * 4 * rows * dim ** 4
 
 
 @pytest.mark.parametrize("problems_per_block", [1, 2, 4])
-@pytest.mark.parametrize("schedule,passes", [("HEADLINE_TUNED_2Q", 16),
-                                             ("PARITY_TUNED_2Q", 133)])
-def test_l2_bytes_per_solve(schedule, passes, problems_per_block):
-    """Each pass reads one copy of A's two f32 planes, 2 x 1080 x 256 x 4 =
-    2,211,840 bytes, once for all the problems of a block."""
-    cfg = getattr(lanes_apg, schedule)
-    got = lanes_apg.apg_fused_l2_bytes_per_solve(1080, 4, problems_per_block,
-                                                 **cfg)
-    assert got == passes * 2_211_840 / problems_per_block
+@pytest.mark.parametrize("schedule,dim,rows,passes", PASSES)
+def test_l2_bytes_per_solve(schedule, dim, rows, passes, problems_per_block):
+    """Each pass reads one copy of A's two f32 planes (2 x 1080 x 256 x 4 =
+    2,211,840 bytes at dim = 4, 2 x 36 x 16 x 4 = 4,608 at dim = 2), once
+    for all the problems of a block."""
+    cfg = _schedule(schedule)
+    got = lanes_apg.apg_fused_l2_bytes_per_solve(rows, dim,
+                                                 problems_per_block, **cfg)
+    assert got == passes * 2 * rows * dim ** 4 * 4 / problems_per_block
 
 
 def _script(path):
